@@ -1,6 +1,6 @@
 /* Native host-I/O runtime for pi_sph_fluid_tpu.
  *
- * The TPU owns the physics; the host shell around it is latency-sensitive
+ * The accelerator owns the physics; the host shell around it is latency-sensitive
  * plumbing, which the reference implements in C with pthreads
  * (pi_sph_fluid.c:414-470).  This library is the native equivalent of that
  * layer, loaded via ctypes (io/native.py) with pure-Python fallbacks:

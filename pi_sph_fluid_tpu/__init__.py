@@ -1,14 +1,14 @@
-"""pi_sph_fluid_tpu — a TPU-native 2-D WCSPH fluid framework (JAX/XLA/Pallas).
+"""pi_sph_fluid_tpu — a 2-D WCSPH fluid framework for the GPU (JAX/XLA/Pallas).
 
 A ground-up rebuild of the capabilities of colonelwatch/pi-sph-fluid
-(reference: /root/reference/pi_sph_fluid.c) designed TPU-first: counting-sort
-hash grid, maskless Pallas window kernels over a row-triple merged candidate
-layout, whole-tick-in-XLA leapfrog stepping, on-device metaball rendering,
-async host I/O shell, and shard_map slab domain decomposition for
-multi-chip scale-out.
+(`pi_sph_fluid.c`) for an accelerator: counting-sort hash grid, maskless
+Pallas (Triton) window kernels over a row-triple merged candidate layout,
+whole-tick-in-XLA leapfrog stepping, on-device metaball rendering, async
+host I/O shell, and shard_map slab domain decomposition for multi-device
+scale-out.
 
-The production single-chip path is models.engine_v3.WindowEngine; the
-multi-chip path is parallel.domain_window.WindowDomain; models.simulation
+The production single-device path is models.engine_v3.WindowEngine; the
+multi-device path is parallel.domain_window.WindowDomain; models.simulation
 is the jnp oracle both are validated against.
 """
 

@@ -1,29 +1,25 @@
-"""Window-kernel simulation engine — the round-2 production TPU path.
+"""Window-kernel simulation engine — the production GPU path.
 
-Same physics and integration order as models/simulation.py (the jnp oracle)
-and the round-1 span-kernel engine it replaced, re-engineered around the
-round-2 findings from on-chip profiling:
+Same physics and integration order as models/simulation.py (the jnp oracle),
+built around per-query-block candidate windows:
 
-* pair passes use the per-query-block window kernels over the row-triple
-  merged candidate layout (ops/pallas/triple.py) — computed pair lanes track
-  the true 3x3-cell stencil instead of a whole-tile union window (the
-  round-1 kernels burned 6-12x more lanes);
-* the relayout avoids 1-D element gathers entirely (measured ~5x slower
-  than row gathers on v5e): one pair-sort yields sorted keys AND order with
-  no key gather, per-particle cell constants ride one row gather of a
-  per-cell table, and particle ids travel inside the packed array
-  (float-valued column 7) so they relayout for free;
-* p/rho^2 is computed once per particle (density-kernel output) instead of
+* pair passes are the per-query-block window kernels over the row-triple
+  merged candidate layout (ops/pallas/triple.py) — computed pair lanes
+  track the true 3x3-cell stencil of each block;
+* the relayout uses one pair-sort that yields sorted keys AND order with no
+  key gather, per-particle cell constants ride one row gather of a per-cell
+  table, and particle ids travel inside the packed array (float-valued
+  column 7) so they relayout for free;
+* p/rho^2 is computed once per particle (density-pass epilogue) instead of
   once per pair lane;
-* fluid and boundary candidates share lanes (one window, one DMA per query
-  block) — the reference's separate fluid/boundary loops
-  (`pi_sph_fluid.c:311-366`) become per-candidate constants.
+* fluid and boundary candidates share lanes (one window per query block) —
+  the reference's separate fluid/boundary loops (`pi_sph_fluid.c:311-366`)
+  become per-candidate constants.
 
 State layout: (n_layout, 8) float32 [x, y, u, v, m, rho, p, id(as float)],
-row-padded as in round 1 (pads: m = 0, x = -1e6).  ``multi_step`` scans K
-ticks per dispatch; ``resort_every`` > 1 reuses the layout/windows across a
-group of ticks (sticky layout, same staleness bound as round 1 —
-see make_multi_step).
+row-padded (pads: m = 0, x = -1e6).  ``multi_step`` scans K ticks per
+dispatch; ``resort_every`` > 1 reuses the layout/windows across a group of
+ticks (sticky layout — see make_multi_step).
 
 Observability: StepStats.neighbor_overflow = window-cap losses plus
 (weighted x1e6) row-capacity losses — both must read 0 in a healthy run.
@@ -40,9 +36,8 @@ import jax.numpy as jnp
 from ..config import SPHConfig
 from ..state import BoundaryState, FluidState
 from ..ops.grid import GridContext, cell_ids
-from ..ops.pallas.triple import (INERT_X, TripleCtx, TripleSpec, band_plan,
-                                 block_windows, build_frame, take_banded,
-                                 triple_spec)
+from ..ops.pallas.triple import (INERT_X, TripleCtx, TripleSpec,
+                                 block_windows, build_frame, triple_spec)
 from ..ops.pallas.window_kernels import density_window_call, forces_window_call
 from .simulation import StepStats
 
@@ -50,9 +45,8 @@ __all__ = ["WindowEngine", "TripleSpec", "PackedSim"]
 
 # ids travel in packed column 7 as float32 *values* (exact below 2^24 ~ 16.7M
 # particles, asserted at engine build).  NOT as int32 bitcasts: ids < 2^23
-# bitcast to denormal floats, and the TPU flushes denormals to zero whenever
-# XLA routes the column through a compute unit — observed collapsing every
-# id to 0 on v5e.
+# bitcast to denormal floats, which a compute unit that flushes denormals to
+# zero would collapse.
 _INERT_ROW = np.asarray([INERT_X, INERT_X, 0, 0, 0, 0, 0, -1.0], np.float32)
 
 
@@ -82,20 +76,17 @@ class WindowEngine:
         boundary: BoundaryState,
         boundary_grid: GridContext,
         n_real: int,
-        tq: int = 256,
         qb: int = 16,
         cap: int = 256,
         seg_q: int = 2,
-        planes: int = 2,
         interpret: bool = False,
-        band: int | None = None,
     ):
         self.cfg = cfg
         self.n_real = int(n_real)
         assert n_real < (1 << 24), "float-valued ids are exact only below 2^24"
         nb = int(boundary.x.shape[0])
-        self.spec = triple_spec(cfg, self.n_real, nb, tq, qb, cap, seg_q,
-                                planes, band)
+        self.spec = triple_spec(cfg, self.n_real, nb, qb, cap, seg_q)
+        # Pallas interpret mode: only when a caller asks (CPU tests, dry runs)
         self.interpret = interpret
         self.boundary = boundary
         self.b_cell_starts = boundary_grid.cell_starts
@@ -116,9 +107,7 @@ class WindowEngine:
             [[INERT_X, INERT_X, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0]], jnp.float32)
         self.inert_row_d = jnp.asarray(
             [[INERT_X, INERT_X, 0.0, 0.0]], dtype=jnp.float32)
-        # loop-invariant zero column for the density-geometry build (a
-        # fresh broadcast inside the scan body materializes a per-tick
-        # T(1,128)->T(8,128) layout copy — round-4 trace)
+        # loop-invariant zero column for the density-geometry build
         self._zcol = jnp.zeros((self.spec.n_layout, 1), jnp.float32)
 
     # ------------------------------------------------------------------
@@ -129,8 +118,7 @@ class WindowEngine:
     # ------------------------------------------------------------------
     def _relayout(self, packed):
         """Sort into the qb-quantized row layout and build the triple
-        context.  Row gathers + arithmetic + one scatter-max/cummax only
-        (1-D element gathers and scatter chains are 3-5x slower on v5e);
+        context.  Row gathers + arithmetic + one scatter-max/cummax only;
         ids ride in packed col 7 (as float values) so they relayout for free.
         """
         cfg, spec = self.cfg, self.spec
@@ -148,76 +136,12 @@ class WindowEngine:
         cells = jnp.where(packed_new[:, 4] > 0,
                           cell_ids(packed_new[:, 0], packed_new[:, 1], cfg),
                           cfg.n_cells)
-        w_start, w_len, flen, overflow = block_windows(spec, cfg, cells, T)
-        band_start = band_local = None
-        if spec.band_h:
-            # banded-gather plan (triple.band_plan): indices are frozen
-            # per relayout, so the one elementwise rebase pass amortizes
-            # over the sticky group.  A chunk whose fluid span outruns
-            # the band would read the boundary-tail rows appended after
-            # it — corrupt values, so it screams x1e6 like row-capacity
-            # losses (counted, never silent).  Boundary/inert locals are
-            # valid by construction ([h, h + nb]; trip_src is clamped to
-            # n_src - 1), and fluid locals cannot be negative (start <=
-            # the chunk's min fluid index), so the only corruption
-            # channel is fluid >= h.
-            band_start, band_local, bad = band_plan(spec, trip_src)
-            overflow = overflow + \
-                jnp.minimum(bad, 1000).astype(jnp.int32) * jnp.int32(1_000_000)
+        w_start, w_len, overflow = block_windows(spec, cfg, cells, T)
         ctx = TripleCtx(layout_src=layout_src, trip_src=trip_src,
-                        w_start=w_start, w_len=w_len, flen=flen, T=T,
-                        overflow=overflow, band_start=band_start,
-                        band_local=band_local)
+                        w_start=w_start, w_len=w_len, T=T, overflow=overflow)
         return packed_new, ctx, overflow
 
     # ------------------------------------------------------------------
-    def _eos(self, rho_col):
-        """Tait EOS + per-particle p/rho^2 and rho/2 (`pi_sph_fluid.c:294-301`),
-        elementwise in XLA: (n_layout, 1) rho -> (n_layout, 4).
-
-        Computed on flat (n,) vectors: (n, 1) column shapes place one value
-        per 128-lane vector register on TPU (measured 0.86 ms for this
-        handful of elementwise ops at 100k)."""
-        cfg = self.cfg
-        rho = rho_col[:, 0]
-        ratio = rho * jnp.float32(1.0 / cfg.rho_0)
-        r2 = ratio * ratio
-        r4 = r2 * r2
-        p = jnp.maximum(jnp.float32(cfg.tait_b) * (r4 * r2 * ratio - 1.0), 0.0)
-        cpress = jnp.where(rho > 0.0, p / (rho * rho), 0.0)
-        return jnp.stack([rho, p, cpress, 0.5 * rho], axis=-1)
-
-    @staticmethod
-    def _dual(a):
-        """(k, L) -> (k, 2L): second plane shifted left 64 lanes, so windows
-        with alignment waste >= 64 fetch from it instead (see
-        triple.block_windows)."""
-        return jnp.concatenate(
-            [a, jnp.pad(a[:, 64:], ((0, 0), (0, 64)))], axis=1)
-
-    def _expand(self, a):
-        """Plane expansion for the fetch encoding (triple.block_windows):
-        dual 64-shifted planes by default; the exact-start single plane
-        (spec.planes == 1) ships the gathered array as-is — no second copy
-        to build, half the candidate HBM."""
-        return a if self.spec.planes == 1 else self._dual(a)
-
-    def _take(self, src, ctx: TripleCtx):
-        """Candidate gather: (n_src, k) -> (L, k) rows at ctx.trip_src.
-
-        Banded when spec.band_h > 0 (see TripleSpec): XLA's row gather
-        drops ~2.5-9x off its fast mode once the source outgrows ~230k
-        rows (measured on v5e, tools/gather_cliff_probe.py), so each
-        LANE-rounded chunk of trip_src gathers from an h-row
-        dynamic-slice band of the source plus the static boundary+inert
-        tail — every local source stays in the fast small-source mode at
-        any scale.  Bitwise-identical rows to the plain gather whenever
-        the band-overflow scream (in ctx.overflow) reads 0."""
-        spec = self.spec
-        if not spec.band_h or ctx.band_start is None:
-            return src[ctx.trip_src]
-        return take_banded(spec, src, ctx.band_start, ctx.band_local)
-
     def _pair_core(self, packed, ctx: TripleCtx, g,
                    half_dt: float = 0.0, damp: float = 1.0):
         """density -> EOS -> forces -> trailing half-kick over one
@@ -229,34 +153,23 @@ class WindowEngine:
 
         Two gathers per tick — slim (L, 4) density geometry before the
         density pass, full (L, 8) force candidates (with the fresh
-        c_press/rho_eff the EOS just produced) after it.  The round-3
-        probes measured every alternative as equal or worse: gather cost
-        is per op (so narrow/bf16 planes save nothing), a merged 8-row
-        array makes the density DMA+dual ~0.7 ms/tick more expensive, and
-        elementwise carried-tick refresh still needs two gathers
-        (au/av + cp/re).  See window_kernels.py module docstring.
-
-        The density kernel runs the Tait EOS in its epilogue and emits the
-        assembled fluid force-candidate rows geo8 = [x,y,u,v,m,cp,re,a]
-        directly (round 4): the XLA squeeze->EOS->stack epilogue and the
-        per-tick column-concat of packed[:, 0:5] with the EOS outputs both
-        cost real layout copies (~0.6 ms/tick combined in the round-4
-        trace); self._eos stays as the jnp reference for the epilogue
-        (tools/knockout_probe.py --no-eos)."""
+        c_press/rho_eff of the density epilogue) after it.  The density
+        pass emits the assembled fluid force-candidate rows geo8 =
+        [x,y,u,v,m,cp,re,a] directly."""
         cfg, spec = self.cfg, self.spec
         geo_d_src = jnp.concatenate([
             jnp.concatenate([packed[:, 0:2], packed[:, 4:5], self._zcol],
                             axis=1),
             self.b_geo_d, self.inert_row_d], axis=0)
-        geo_d = self._expand(self._take(geo_d_src, ctx).T)  # (4, planes*L)
-        geo8, rp = density_window_call(packed, geo_d, ctx.w_start, ctx.flen,
+        geo_d = geo_d_src[ctx.trip_src].T                   # (4, L)
+        geo8, rp = density_window_call(packed, geo_d, ctx.w_start, ctx.w_len,
                                        cfg, spec, interpret=self.interpret)
         # force candidates: fluid rows straight from the density kernel
         geo_f_src = jnp.concatenate([geo8, self.b_geo, self.inert_row],
                                     axis=0)
-        geo_f = self._expand(self._take(geo_f_src, ctx).T)  # (8, planes*L)
+        geo_f = geo_f_src[ctx.trip_src].T                   # (8, L)
         pk_next, acc = forces_window_call(
-            packed, geo8, rp, geo_f, ctx.w_start, ctx.flen, g, cfg, spec,
+            packed, geo8, rp, geo_f, ctx.w_start, ctx.w_len, g, cfg, spec,
             half_dt=half_dt, damp=damp, interpret=self.interpret)
         return pk_next, acc
 
@@ -336,9 +249,8 @@ class WindowEngine:
         return jnp.concatenate(
             [x[:, None], y[:, None], u[:, None], v[:, None], pk[:, 4:]], axis=1)
 
-    # NOTE: the trailing half-kick lives in the forces kernel epilogue
-    # since round 4 (forces_window_call(half_dt=, damp=) returns the
-    # finished packed state) — there is no XLA-side _finish anymore.
+    # NOTE: the trailing half-kick lives in the forces pass epilogue
+    # (forces_window_call(half_dt=, damp=) returns the finished state).
 
     def make_multi_step(self, damping: float = 1.0, resort_every: int = 1,
                         return_frame: bool = False):
@@ -405,16 +317,14 @@ class WindowEngine:
 
             # carried ticks as an inner scan: a python-unrolled group keeps
             # every tick's candidate-array temporaries live simultaneously
-            # in XLA's buffer assignment (measured 23G at 4M particles —
-            # the whole-step scan form reuses one tick's worth).
+            # in XLA's buffer assignment; the scan reuses one tick's worth.
             #
-            # Stats are SAMPLED on sticky groups (round 4): the max-rho /
-            # max-speed / non-finite REDUCTIONS run on the fresh tick and
-            # the group's final tick only — the round-4 device trace put
-            # the per-tick stats fusion at ~0.28 ms/tick (~5%), and the
-            # reporter maxes over report intervals anyway.  Carried ticks
+            # Stats are SAMPLED on sticky groups: the max-rho / max-speed /
+            # non-finite REDUCTIONS run on the fresh tick and the group's
+            # final tick only — the reporter maxes over report intervals
+            # anyway.  Carried ticks
             # DO fold their rho/speed into per-particle running maxima
-            # (two elementwise maxes, no reduction — ADVICE r4: in-group
+            # (two elementwise maxes, no reduction: in-group
             # transient spikes must not vanish from worst-case tracking),
             # so the final tick's sampled stats report the GROUP max, not
             # the final-tick value.  The counted loss channels keep their
@@ -482,92 +392,6 @@ class WindowEngine:
 
         return multi_step
 
-    def make_multi_step_concatfree(self, resort_every: int = 8,
-                                   damping: float = 1.0):
-        """PROBE variant (round 5, VERDICT r4 #8): kick-drift with NO
-        column extracts and NO concat.  The shipped carried tick slices
-        pk into flat columns, integrates, and concatenates back — the
-        round-4 trace charged ~0.39 ms/tick of (n, 1) column transposes
-        plus concat glue to that dance.  Here the integration runs on the
-        whole (n, 8) array via zero-pads:
-
-            pk1 = pk + pad(half_dt * acc  -> cols 2:4)   # leading kick
-            pk2 = pk1 + pad(dt * pk1[:, 2:4] -> cols 0:2)  # drift
-
-        and the carry is (pk, acc (n, 2)) — the forces kernel's outputs
-        verbatim, so the au/av column splits die too.  The stale guard
-        reduces (dp*dp) over a lane mask instead of extracting columns.
-        Physics is ulp-equivalent, not bitwise: the drift add no longer
-        fuses into an fma with the kick (measured max |d| 5.6e-9 over 8
-        drop-scene steps — pure FP reassociation, the same class as the
-        round-4 kick fusion).  Measured A/B lives in ROOFLINE §2; the
-        shipped path stays unless this wins on hardware."""
-        dt = jnp.float32(self.cfg.dt)
-        half_dt = jnp.float32(0.5) * dt
-        half_f = 0.5 * float(self.cfg.dt)
-        damp_f = float(damping)
-        assert resort_every > 1, "probe covers the sticky path"
-        zero = jnp.asarray(0, jnp.int32)
-        margin2 = jnp.float32((0.3 * self.cfg.h) ** 2)
-        xy_mask = jnp.asarray([1, 1, 0, 0, 0, 0, 0, 0], jnp.float32)
-
-        def kick_drift(pk, acc):
-            pk1 = pk + jnp.pad(half_dt * acc, ((0, 0), (2, 4)))
-            return pk1 + jnp.pad(dt * pk1[:, 2:4], ((0, 0), (0, 6)))
-
-        def group(carry, g_group):
-            pk, acc = carry
-            pk = kick_drift(pk, acc)
-            pk, ctx, overflow = self._relayout(pk)
-            pk0 = pk               # layout-time state: the stale datum
-            live = pk[:, 4] > 0
-            pk, acc = self._pair_core(pk, ctx, g_group[0], half_f, damp_f)
-            sim0 = PackedSim(packed=pk, ids=self._ids(pk),
-                             au=acc[:, 0], av=acc[:, 1])
-            st0 = self.stats(sim0, overflow, stale=zero)
-
-            def carried(c, g_j):
-                pk, acc = c
-                pk = kick_drift(pk, acc)
-                dp = pk - pk0
-                d2 = jnp.sum((dp * dp) * xy_mask, axis=1)
-                stale = jnp.sum((live & (d2 > margin2)).astype(jnp.int32))
-                pk, acc = self._pair_core(pk, ctx, g_j, half_f, damp_f)
-                return (pk, acc), stale
-
-            (pk, acc), stales = jax.lax.scan(carried, (pk, acc), g_group[1:])
-            sim_l = PackedSim(packed=pk, ids=self._ids(pk),
-                              au=acc[:, 0], av=acc[:, 1])
-            st_last = self.stats(sim_l, zero, stale=stales[-1])
-            k1 = resort_every - 1
-            st_rest = StepStats(
-                max_rho_error_pct=jnp.zeros((k1,), jnp.float32)
-                    .at[-1].set(st_last.max_rho_error_pct),
-                max_speed=jnp.zeros((k1,), jnp.float32)
-                    .at[-1].set(st_last.max_speed),
-                neighbor_overflow=jnp.zeros((k1,), jnp.int32)
-                    .at[-1].set(st_last.neighbor_overflow),
-                stale=stales,
-            )
-            stats = jax.tree_util.tree_map(
-                lambda a, b: jnp.concatenate([a[None], b]), st0, st_rest)
-            return (pk, acc), stats
-
-        def multi_step(sim: PackedSim, g_trace):
-            g_trace = jnp.asarray(g_trace, jnp.float32)
-            k = g_trace.shape[0]
-            assert k % resort_every == 0
-            groups = g_trace.reshape(k // resort_every, resort_every, 2)
-            acc = jnp.stack([sim.au, sim.av], axis=1)
-            (pk, acc), stats = jax.lax.scan(group, (sim.packed, acc), groups)
-            flat = jax.tree_util.tree_map(
-                lambda a: a.reshape(k, *a.shape[2:]), stats)
-            sim = PackedSim(packed=pk, ids=self._ids(pk),
-                            au=acc[:, 0], av=acc[:, 1])
-            return sim, flat
-
-        return multi_step
-
     def _empty_frame(self):
         """Zero-valued frame context (trip_src, T) as the scan-carry seed
         for ``return_frame`` — overwritten by the first tick/group."""
@@ -577,17 +401,16 @@ class WindowEngine:
     # ------------------------------------------------------------------
     def stats(self, sim: PackedSim, overflow=None, stale=None,
               rho_hi=None, sp2_hi=None) -> StepStats:
-        """Non-finite real rows fold into the overflow scream (x1e6): TPU
-        max-reductions silently DROP NaN operands, so a NaN'd state would
-        otherwise print healthy max stats (observed on v5e — a degenerated
-        state reported 0.000% rho error while fully NaN).
+        """Non-finite real rows fold into the overflow scream (x1e6): a max
+        reduction is not guaranteed to propagate NaN on every backend, so a
+        NaN'd state could otherwise print healthy max stats.
 
         ``rho_hi``/``sp2_hi``: optional per-particle running maxima (pads
         zeroed) replacing the state's own rho/speed in the max reductions —
         the sticky-group sampled tick passes the group-wide elementwise
         maxima so interior-tick transients reach the reporter's worst-case
-        tracking (ADVICE r4).  The non-finite probe always reads the
-        current state (NaN persists; running maxima DROP NaN on TPU)."""
+        tracking.  The non-finite probe always reads the
+        current state (NaN persists; running maxima may drop it)."""
         rho0 = jnp.float32(self.cfg.rho_0)
         m = sim.packed[:, 4]
         rho = sim.packed[:, 5]

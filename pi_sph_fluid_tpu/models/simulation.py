@@ -12,7 +12,7 @@ accelerations.  Differences by design (SURVEY.md §7):
   grid-sorted order (``ids`` tracks original identity for parity tests);
 * one tick is one XLA computation; ``multi_step`` scans K ticks per host
   dispatch so the device never round-trips to the host per step
-  (the TPU analog of running free with REALTIME off);
+  (the accelerator analog of running free with REALTIME off);
 * per-step stats (max density error, max speed — `pi_sph_fluid.c:656-675`)
   are on-device reductions returned with the state.
 """
@@ -157,9 +157,8 @@ def stats(sim: SimState, cfg: SPHConfig, overflow=None) -> StepStats:
     """On-device invariant reductions (`pi_sph_fluid.c:656-675`).
 
     Non-finite state rows are folded into the overflow scream (x1e6, like
-    capacity-lost rows): TPU max-reductions silently DROP NaN operands, so
-    a NaN'd state otherwise prints healthy-looking max stats — observed on
-    v5e with a degenerated fine-resolution pool."""
+    capacity-lost rows): a max reduction need not propagate NaN operands,
+    so a NaN'd state could otherwise print healthy-looking max stats."""
     rho0 = jnp.float32(cfg.rho_0)
     max_rho_error = jnp.max(sim.fluid.rho - rho0)
     speed2 = sim.fluid.u * sim.fluid.u + sim.fluid.v * sim.fluid.v

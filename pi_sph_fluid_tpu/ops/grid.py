@@ -1,9 +1,9 @@
-"""Counting-sort uniform hash grid — the TPU-native neighbor engine.
+"""Counting-sort uniform hash grid — the accelerator-native neighbor engine.
 
 The reference builds cell linked-lists every step (`pi_sph_fluid.c:104-124`):
 a serial O(N) pass threading unsigned-short next-pointers through the particle
 array.  A linked list is inherently sequential and un-vectorisable, so the
-TPU design replaces it with a **counting sort** (SURVEY.md §2 #4):
+accelerator design replaces it with a **counting sort** (SURVEY.md §2 #4):
 
 1. compute each particle's cell id (row-major over the 2H x 2H grid),
 2. stable-sort particle indices by cell id (XLA radix sort),

@@ -1,12 +1,10 @@
-"""Row-triple merged candidate layout — the round-2 pair-kernel data structure.
+"""Row-triple merged candidate layout — the pair passes' data structure.
 
-**Why.**  The round-1 kernels shared one candidate window across a whole
-128-query tile: 128 queries in one cell row span ~19 cells at the bench
-occupancy, so every query computed against a ~22-cell union window — 6-12x
-more pair lanes than the true 3x3-cell stencil (`pi_sph_fluid.c:136-141`)
-needs.  Per-query-block windows fix that, but with the plain row layout a
-block's candidates are 3 disjoint spans (rows r-1, r, r+1), each paying its
-own 128-lane DMA-alignment and chunk quantization.
+**Why.**  A candidate window shared by many queries of different cells
+computes far more pair lanes than the true 3x3-cell stencil
+(`pi_sph_fluid.c:136-141`) needs.  Per-query-block windows fix that, but
+with the plain row layout a block's candidates are 3 disjoint spans (rows
+r-1, r, r+1).
 
 **The structure.**  Grid rows are grouped SEG_Q at a time; for each group a
 *segment* holds every candidate its queries can see — all particles (fluid
@@ -15,43 +13,38 @@ AND boundary, merged) of rows [SEG_Q*s - 1, SEG_Q*(s+1)] — ordered
 cover-row 0 boundary, cover-row 1 fluid, ...].  Consequences:
 
 * a block of QB consecutive queries (cells [c0, c1] of one row) has exactly
-  **one** contiguous candidate window: its segment's columns [c0-1, c1+1] —
-  one span, one DMA;
+  **one** contiguous candidate window: its segment's columns [c0-1, c1+1],
+  read from its exact start;
 * grouping SEG_Q query rows per segment trades a few distance-killed lanes
   (cover rows 2 away from a query's row) for a (SEG_Q+2)/(3*SEG_Q)x smaller
-  candidate array — the per-step candidate re-gather is the dominant
-  XLA-side cost, measured ~11 GB/s effective on v5e;
+  candidate array, which is re-gathered every tick;
 * the array holds only real particles (no layout pads), so window length
   tracks true candidate count;
-* **no per-lane masks**: a lane outside the window but inside the fetched
+* **no per-lane masks**: a lane outside the window but inside a fetched
   chunk is a real particle >= 1 whole cell away (column direction) or >= 2
   rows away, or an inert segment pad, so the q < 2 support test kills it;
   self-pairs need no exclusion (the density self-term IS the reference's
   explicit m*W(0), `pi_sph_fluid.c:274-275`; force self-terms vanish);
-* segments are separated by >= CAP + 128 inert pad lanes, so a fetch that
-  overruns a segment can never reach the next segment's duplicate copies.
+* segments are separated by >= CAP + 128 inert pad lanes, so a read that
+  overruns a window by up to a chunk can never reach the next segment's
+  duplicate copies.
 
-**The query layout** is row-padded like round 1 but with *per-row* capacity
-quantized to QB (not TQ): row r occupies layout slots
-[rstart[r], rstart[r] + roundup(row_count[r], QB)).  This keeps every
-QB-query block inside one row while wasting < QB slots per row (the round-1
-fixed rowcap wasted ~2x the particle count in inert pads, doubling every
-kernel and gather).  Row capacities can never drop particles (they round
-*up* per row), so the round-1 `lost` counter is gone by construction.
+**The query layout** is row-padded with *per-row* capacity quantized to QB:
+row r occupies layout slots [rstart[r], rstart[r] + roundup(row_count[r],
+QB)).  This keeps every QB-query block inside one row while wasting < QB
+slots per row.  Row capacities can never drop particles (they round *up*
+per row), so no particle can be lost by the layout.
 
 All index structures are built from row gathers + arithmetic + one
-scatter-max + cummax: 1-D element gathers and scatter chains measured 3-5x
-slower than row gathers on v5e (tools/relayout_probe.py).
+scatter-max + cummax.
 
-Candidate arrays seen by the kernels:
-  geo (8, L): rows 0-4 = x, y, u, v, m~ (mass | pseudo-mass); rows 5-7
-              unused by kernels (they mirror whatever the gather source
-              carries there)
-  rp  (4, L): rows 0-1 = c_press (p_j/rho_j^2, 0 on boundary),
-              rho_eff (rho_j/2 fluid, 0 boundary); rows 2-3 zero
+Candidate arrays seen by the pair passes:
+  geo (8, L): rows 0-4 = x, y, u, v, m~ (mass | pseudo-mass); rows 5-7 =
+              c_press (p_j/rho_j^2, 0 on boundary), rho_eff (rho_j/2 fluid,
+              0 boundary), a_j (0.5 fluid, 1.0 boundary)
 so the pair-mean viscosity denominator (q_rho+c_rho)/2 (`pi_sph_fluid.c:333`)
 and the boundary's fluid-only denominator (`pi_sph_fluid.c:362`) unify as
-a_j*q_rho + rho_eff_j with a_j = where(rho_eff_j > 0, 0.5, 1.0).
+a_j*q_rho + rho_eff_j.
 
 Overflows are counted, never silent: window lanes beyond the block cap are
 summed into ``overflow`` (must read 0 in a healthy run).
@@ -66,9 +59,10 @@ import jax.numpy as jnp
 
 from ...config import SPHConfig
 
-__all__ = ["TripleSpec", "TripleCtx", "triple_spec", "build_frame", "INERT_X"]
+__all__ = ["TripleSpec", "TripleCtx", "triple_spec", "build_frame",
+           "block_windows", "window_overflow", "INERT_X"]
 
-LANE = 128
+LANE = 128  # segment-stride quantum and cap granularity (lanes)
 INERT_X = -1e6  # inert slots sit far outside the domain -> q >= 2 kills them
 
 
@@ -79,39 +73,13 @@ def _round_up(x, m):
 class TripleSpec(NamedTuple):
     """Static shape parameters (host-side ints)."""
 
-    tq: int          # queries per kernel tile
     qb: int          # queries per window block (row capacities quantize to qb)
-    cap: int         # candidate lanes fetched per block window
+    cap: int         # candidate lanes read per block window
     seg_q: int       # query rows per candidate segment
-    n_layout: int    # static query-layout length (multiple of tq)
+    n_layout: int    # static query-layout length (multiple of qb)
     L: int           # static candidate-array length
     n_src: int       # gather-source rows: n_layout + nb + 1 (inert)
     n_runs: int      # static run-table length
-    planes: int = 2  # fetch encoding: 2 = dual 64-shifted planes (128-aligned
-                     # DMA starts, waste < 64 lanes); 1 = exact-start single
-                     # plane (zero waste, flen == w_len; requires the DMA
-                     # engine to accept arbitrary lane offsets)
-    # banded candidate gather (round 5): XLA's row gather falls off a
-    # measured cost cliff when the SOURCE outgrows ~7-8 MB on v5e
-    # (~230k 8-col f32 rows: 0.99 -> 2.45 ms at 252k -> 8.9 ms at 300k
-    # for the same 560k-row index set), which made the gathers ~60% of a
-    # 500k tick and the dominant cost at 1M+.  trip_src is segment-ordered
-    # — each contiguous index chunk reads one contiguous LAYOUT band plus
-    # the boundary tail — so chunking L and gathering each chunk from an
-    # h-row dynamic-slice of the source keeps every gather in the fast
-    # small-source mode at ANY scale (measured 1.6x/3.0x on the real
-    # 500k trip_src, 11-68x on synthetic 1M shapes).
-    band_h: int = 0   # fluid band rows per chunk (0 = plain gather)
-    band_p: int = 1   # number of L chunks
-    band_lc: int = 0  # candidate slots per chunk (LANE-rounded)
-
-    @property
-    def nqb(self) -> int:
-        return self.tq // self.qb
-
-    @property
-    def n_tiles(self) -> int:
-        return self.n_layout // self.tq
 
 
 class TripleCtx(NamedTuple):
@@ -120,62 +88,27 @@ class TripleCtx(NamedTuple):
     layout_src: (n_layout,) int32 — row of the *sorted+inert-extended* source
                 feeding each layout slot (inert row for pads)
     trip_src:   (L,) int32 — gather-source row feeding each candidate slot
-    w_start:    (n_tiles, nqb) int32 — per-block window starts
-    w_len:      (n_tiles, nqb) int32 — true window lengths
-    flen:       (n_tiles, nqb) int32 — true fetch lengths (alignment waste
-                + window length): the kernels compute ceil(flen/128) chunks
+    w_start:    (n_layout // qb,) int32 — per-block window starts
+    w_len:      (n_layout // qb,) int32 — true window lengths
     T:          (n_cells+1, 8) int32 — the per-cell window table [wlo, whi]
                 (renderer frame reuse maps pixel blocks through it)
     overflow:   () int32 — window lanes beyond cap (must be 0)
-    band_start: (band_p,) int32 — per-chunk fluid-band start rows (banded
-                gather; None when spec.band_h == 0)
-    band_local: (band_p, band_lc) int32 — per-chunk band-local candidate
-                indices: fluid rows rebased to the chunk's band, boundary /
-                inert rows to [band_h, band_h + nb] (None when unbanded)
     """
 
     layout_src: jnp.ndarray
     trip_src: jnp.ndarray
     w_start: jnp.ndarray
     w_len: jnp.ndarray
-    flen: jnp.ndarray
     T: jnp.ndarray
     overflow: jnp.ndarray
-    band_start: jnp.ndarray = None
-    band_local: jnp.ndarray = None
 
 
-# banded-gather sizing: keep each chunk's local source (band + boundary
-# tail) comfortably inside the measured fast-mode region (~7-8 MB for an
-# 8-col f32 source on v5e; 98304 rows + tail ~= 3.2 MB at k=8, 2x margin)
-BAND_H_DEFAULT = 98_304
-# big sources prefer bigger bands: the optimum trades per-chunk dispatch
-# overhead against per-row local-source cost, and the balance tips toward
-# fewer, larger chunks as P grows.  Same-session r64 A/Bs (tools/band_ab):
-# 250k best at 98304 (22.85M vs 21.79 at 131072), 500k a wash
-# (23.24/23.27), 1M 196608 wins (23.04M vs 21.86 at 98304), 2M 22.72M
-# (+24% over plain), 4M 22.28M (+41%) — 196608 + tail stays ~6.5 MB,
-# still under the cliff.  Threshold between the two sits past 500k rows.
-BAND_H_LARGE = 196_608
-BAND_LARGE_MIN = 600_000
-# below ~160k source rows the plain gather is already in fast mode and
-# banding only adds slice/concat traffic — auto-banding stays off
-BAND_AUTO_MIN = 163_840
-# per-chunk layout-span overhang beyond n_layout/P: the +-1 cover rows and
-# partial segments at the chunk edges (~2-3 grid rows; <= ~9.5k layout
-# slots/row at 4M).  Overruns are COUNTED into neighbor_overflow (x1e6).
-BAND_SLACK = 16_384
-
-
-def triple_spec(cfg: SPHConfig, n_real: int, nb: int, tq: int = 256,
-                qb: int = 16, cap: int = 256, seg_q: int = 3,
-                planes: int = 2, band: int | None = None) -> TripleSpec:
-    assert tq % qb == 0 and cap % LANE == 0
-    assert planes in (1, 2)
+def triple_spec(cfg: SPHConfig, n_real: int, nb: int, qb: int = 16,
+                cap: int = 256, seg_q: int = 3) -> TripleSpec:
+    assert cap % LANE == 0
     n_rows = cfg.n_cell_rows
     n_seg = -(-n_rows // seg_q)
-    n_layout = _round_up(n_real + qb * n_rows, tq)
-    cover = seg_q + 2
+    n_layout = _round_up(n_real + qb * n_rows, qb)
     # a row r is covered by segments s with s*seg_q-1 <= r <= s*seg_q+seg_q,
     # i.e. at most 2 segments for seg_q >= 2 (3 for seg_q = 1), so the real
     # candidate total is <= copies*(n+nb); plus per-segment guard strides.
@@ -185,77 +118,10 @@ def triple_spec(cfg: SPHConfig, n_real: int, nb: int, tq: int = 256,
     # row distribution overruns L and late windows index garbage.
     copies = 3 if seg_q == 1 else 2
     L = _round_up(copies * (n_real + nb) + n_seg * (cap + 3 * LANE) + 2 * LANE, LANE)
-    n_runs = n_seg * (cfg.n_cell_cols * cover * 2 + 1)
+    n_runs = n_seg * (cfg.n_cell_cols * (seg_q + 2) * 2 + 1)
     n_src = n_layout + nb + 1
-    # banded-gather plan: band = None -> auto (on above BAND_AUTO_MIN
-    # source rows), 0 -> plain gather, > 0 -> explicit band rows
-    if band is None:
-        band = (0 if n_src <= BAND_AUTO_MIN else
-                BAND_H_DEFAULT if n_src <= BAND_LARGE_MIN else BAND_H_LARGE)
-    band_h = band_p = band_lc = 0
-    if band and band < n_layout:
-        band_h = int(band)
-        # Chunk sizing bound: every particle appears in exactly `copies`
-        # segments, and boundary rows / segment guards consume candidate
-        # slots WITHOUT consuming fluid-layout span, so a chunk of Lc
-        # candidate slots spans at most ~Lc/copies layout slots — plus an
-        # overhang of a few partial rows/segments at the chunk edges
-        # (row-size-scaled slack; the 4M pool overflowed a flat 16k).
-        # Undersized bands are COUNTED into neighbor_overflow (x1e6), so
-        # a pathological density that beats this sizing screams and the
-        # elastic-recovery ladder rebuilds — never silent corruption.
-        row_avg = n_layout // max(n_rows, 1)
-        slack = min(max(BAND_SLACK, 6 * row_avg), max(band_h // 2, 1))
-        band_p = -(-(L // copies) // max(band_h - slack, 1))
-        band_lc = _round_up(-(-L // max(band_p, 1)), LANE)
-        band_p = -(-L // band_lc)      # re-derive after LANE rounding
-    return TripleSpec(tq=tq, qb=qb, cap=cap, seg_q=seg_q, n_layout=n_layout,
-                      L=L, n_src=n_src, n_runs=n_runs, planes=planes,
-                      band_h=band_h, band_p=max(band_p, 1), band_lc=band_lc)
-
-
-def band_plan(spec: TripleSpec, trip_src: jnp.ndarray):
-    """Banded-gather index rebase (see TripleSpec.band_h): chunk trip_src
-    into (band_p, band_lc), rebase each chunk's fluid indices to its
-    min-start h-row band and its boundary/inert indices to the tail slots
-    appended after the band.  Returns (band_start (P,), band_local
-    (P, Lc), bad) — ``bad`` counts fluid indices whose chunk span outran
-    the band (they would read corrupt tail rows; callers fold it into
-    their overflow scream, x1e6-scaled, counted never silent).
-
-    One elementwise pass over L; amortizes over a sticky group in the
-    engine and is noise next to the gather it accelerates in the
-    renderer's per-frame use."""
-    P, Lc, h = spec.band_p, spec.band_lc, spec.band_h
-    nl = spec.n_layout
-    tsr = jnp.pad(trip_src, (0, P * Lc - spec.L),
-                  constant_values=spec.n_src - 1).reshape(P, Lc)
-    is_b = tsr >= nl
-    f_idx = jnp.where(is_b, jnp.int32(1 << 30), tsr)
-    band_start = jnp.clip(jnp.min(f_idx, axis=1), 0, nl - h)
-    band_local = jnp.where(is_b, tsr - nl + h, tsr - band_start[:, None])
-    bad = jnp.sum(~is_b & (band_local >= h))
-    band_local = jnp.clip(band_local, 0, h + spec.n_src - nl - 1)
-    return band_start, band_local, bad
-
-
-def take_banded(spec: TripleSpec, src: jnp.ndarray, band_start: jnp.ndarray,
-                band_local: jnp.ndarray) -> jnp.ndarray:
-    """Banded row gather (n_src, k) -> (L, k): each LANE-rounded chunk of
-    trip_src gathers from an h-row `dynamic_slice` band of the source
-    plus the static boundary+inert tail, keeping every local source in
-    XLA's fast small-source gather mode at any scale (the ~7-8 MB cliff,
-    ROOFLINE 2f / tools/gather_cliff_probe.py).  Bitwise-identical rows
-    to ``src[trip_src]`` whenever the plan's ``bad`` count reads 0."""
-    k = src.shape[1]
-    h = spec.band_h
-    tail = src[spec.n_layout:]          # boundary + inert (static slice)
-    outs = []
-    for p in range(spec.band_p):
-        band = jax.lax.dynamic_slice(
-            src, (band_start[p], jnp.int32(0)), (h, k))
-        outs.append(jnp.concatenate([band, tail], 0)[band_local[p]])
-    return jnp.concatenate(outs, axis=0)[:spec.L]
+    return TripleSpec(qb=qb, cap=cap, seg_q=seg_q, n_layout=n_layout,
+                      L=L, n_src=n_src, n_runs=n_runs)
 
 
 def build_frame(
@@ -318,8 +184,8 @@ def build_frame(
     tcol_start = seg_start[:, None] + (jnp.cumsum(segcnt, axis=1, dtype=jnp.int32) - segcnt)
 
     # ---- per-cell window table T -----------------------------------------
-    # column +-1 shifts are pure slices (1-D element gathers are the slow
-    # path on TPU — every lookup here is a whole-row gather or a slice)
+    # column +-1 shifts are pure slices: every lookup here is a whole-row
+    # gather or a slice
     seg_of_row = jnp.arange(n_rows, dtype=jnp.int32) // seg_q
     tcs_r = tcol_start[seg_of_row]                          # (n_rows, m)
     tce_r = tcs_r + segcnt[seg_of_row]
@@ -381,16 +247,15 @@ def build_frame(
 
 def block_windows(spec: TripleSpec, cfg: SPHConfig, cells: jnp.ndarray,
                   T: jnp.ndarray):
-    """Per-(tile, block) candidate windows from layout-order cell ids.
+    """Per-block candidate windows from layout-order cell ids.
 
     Blocks never straddle rows (row capacities are qb-quantized), and cells
     are non-decreasing within a row, so a block's query cells are
-    [cells[first], max over valid slots].
+    [cells[first], max over valid slots].  Returns (w_start, w_len,
+    overflow); each window is read from its exact start.
     """
     n_cells = cfg.n_cells
-    nqb, qb, cap = spec.nqb, spec.qb, spec.cap
-    n_tiles = spec.n_tiles
-    cells_b = cells.reshape(n_tiles * nqb, qb)
+    cells_b = cells.reshape(-1, spec.qb)
     valid_b = cells_b < n_cells
     c_first = cells_b[:, 0]
     c_last = jnp.max(jnp.where(valid_b, cells_b, -1), axis=1)
@@ -399,30 +264,18 @@ def block_windows(spec: TripleSpec, cfg: SPHConfig, cells: jnp.ndarray,
     T_hi = T[jnp.where(has_q, c_last, n_cells)]
     w_start = jnp.where(has_q, T_lo[:, 0], 0).astype(jnp.int32)
     w_len = jnp.where(has_q, T_hi[:, 1] - T_lo[:, 0], 0).astype(jnp.int32)
-    if spec.planes == 1:
-        # exact-start fetch: the DMA begins at the window's true start
-        # (arbitrary lane offset), zero alignment waste — candidate arrays
-        # are a single (k, L) plane and flen is the window length itself
-        fetch = w_start
-        flen = w_len
-    else:
-        # dual-plane fetch encoding: candidate arrays are (k, 2L) with the
-        # second half shifted left by 64 lanes, so a window whose
-        # 128-alignment waste would be >= 64 fetches from the shifted plane
-        # instead — the effective alignment waste is always < 64 lanes
-        extra = w_start % LANE
-        use_hi = extra >= 64
-        fetch = jnp.where(use_hi, spec.L + w_start - extra, w_start - extra)
-        extra_eff = extra - jnp.where(use_hi, 64, 0)
-        flen = extra_eff + w_len
-    # saturating sum: under a catastrophic state (NaN positions -> garbage
-    # cells -> huge window diffs) a plain int32 sum wraps NEGATIVE and the
-    # stat becomes unreadable; accumulate in f32 and clamp so the counter
-    # stays a large positive scream
-    raw = jnp.sum(jnp.maximum(flen - cap, 0).astype(jnp.float32))
+    return w_start, w_len, window_overflow(T, w_len, spec.cap, n_cells)
+
+
+def window_overflow(T, w_len, cap: int, n_cells: int):
+    """Window lanes beyond ``cap`` plus the L-budget guard build_frame
+    stashes at T[n_cells, 2] (weighted x1e6, like row-capacity losses, so a
+    budget overrun is unmistakable in stats).
+
+    Saturating sum: under a catastrophic state (NaN positions -> garbage
+    cells -> huge window diffs) a plain int32 sum wraps NEGATIVE and the
+    stat becomes unreadable; accumulate in f32 and clamp so the counter
+    stays a large positive scream."""
+    raw = jnp.sum(jnp.maximum(w_len - cap, 0).astype(jnp.float32))
     overflow = jnp.minimum(raw, 1e8).astype(jnp.int32)
-    # L-budget guard stashed by build_frame (see there): weight x1e6 like
-    # row-capacity losses so a budget overrun is unmistakable in stats
-    overflow = overflow + jnp.minimum(T[n_cells, 2], 1000) * jnp.int32(1_000_000)
-    return (fetch.reshape(n_tiles, nqb), w_len.reshape(n_tiles, nqb),
-            flen.reshape(n_tiles, nqb), overflow)
+    return overflow + jnp.minimum(T[n_cells, 2], 1000) * jnp.int32(1_000_000)

@@ -1,57 +1,43 @@
-"""Fused per-query-block window kernels over the row-triple candidate layout.
+"""The two per-tick pair passes over the row-triple candidate layout.
 
-Round-3 revision.  The round-3 probes (tools/gather_probe.py,
-tools/skip_probe.py, tools/knockout_probe.py, all measured on the attached
-v5e) pinned the cost model and killed two of the planned levers:
+Every query block (``spec.qb`` consecutive layout slots, never straddling a
+grid row) owns one contiguous candidate window ``[w_start, w_start + w_len)``
+in the ``(k, L)`` candidate arrays built by ops/pallas/triple.py.  The
+passes reduce the ``qb x window`` pair tile of each block in place:
 
-* XLA row-gather cost is **per gather op** (~0.7-0.8 ms in-graph for the
-  bench-scale trip_src at any row width 2-16, f32 or bf16) — so bf16
-  candidate planes and narrow cp/re planes buy nothing, elementwise
-  carried-tick candidate refresh costs the same as re-gathering (it still
-  needs an au/av gather plus a cp/re gather per tick), and merging the
-  density geometry into the force array is a net LOSS (the density pass
-  then DMAs 8 rows instead of 4 and the dual build doubles: measured
-  ~+0.7 ms/tick).  The two-gather-per-tick dataflow — slim (L, 4) density
-  geometry before the density pass, full (L, 8) force candidates after the
-  EOS — is the measured floor.
-* **Per-block ``pl.when`` chunk dispatch is strongly negative**: computing
-  only ceil(flen/128) of the cap/128 chunks costs ~+275 ns per block-branch
-  on v5e (+3.5 ms/tick at 100k, measured with dispatch on vs off), far more
-  than the skipped VPU work saves.  ``_chunk_dispatch`` is kept as the
-  documented dead lever with the always-full default.
-
-What round 3 did keep:
-
-* the per-candidate viscosity-denominator weight ``a`` (0.5 fluid, 1.0
-  boundary) rides in force-candidate row 7, turning the reference's
-  boundary asymmetry (`pi_sph_fluid.c:362`) into one fma:
-  denom = a_j*rho_i + re_j (replacing a compare+select per lane; exact:
-  x0.5 and rho/2 are exact f32 scalings);
-* the ``denom > 0`` guard is dropped from the viscosity predicate: denom
-  can only be 0 for pad queries (rho_i = 0 with re_j = 0), whose outputs
-  are zeroed by the final q_valid select — a NaN/Inf produced on a pad
-  query's lanes never escapes a select, and real queries always have
-  denom >= a_j*rho_i > 0.
-
-Round-2 foundations unchanged: fully static chunk structure (dynamic
-fori_loop bounds + SMEM scalar reads in the math path measured
-~1.4 ms/pass), no per-lane masks (out-of-window lanes are support-killed
-by construction; the density self-term IS the reference's explicit m*W(0),
-`pi_sph_fluid.c:274-275`; force self-terms vanish at dx = dy = 0),
-dual-plane 64-lane-shifted fetch encoding, cross-tile double buffering
-with unconditional DMA pairs (predicated start/wait pairs unbalance DMA
-semaphores — the round-1 hardware NaN bug).
-
-Physics matches the reference pass-for-pass:
   density + Tait EOS           `pi_sph_fluid.c:263-301`
   symmetric pressure + Macklin artificial pressure + Monaghan viscosity
                                `pi_sph_fluid.c:303-373`
-with the boundary asymmetries (fluid-only pressure, fluid-rho viscosity
-denominator, `pi_sph_fluid.c:350,362`) folded into per-candidate values
+
+Two implementations share one signature:
+
+* ``density_window_call`` / ``forces_window_call``: Pallas kernels on the
+  Triton route, one program per query block.  A program loads its queries,
+  walks its window in ``CHUNK``-lane power-of-two pieces (a dynamic trip
+  count bounded by the block's true window length, capped at ``cap``),
+  keeps the ``(qb, CHUNK)`` partial sums in registers, and fuses the EOS,
+  the force-candidate row assembly and the trailing half-kick into its
+  epilogue.  Nothing of size ``qb x cap`` ever reaches device memory.
+* ``density_plain`` / ``forces_plain``: the same arithmetic in plain
+  ``jax.numpy`` over a ``(n_blocks, qb, cap)`` pair tensor — the reference
+  the kernels are tested against (tests, chip_smoke.py), not a production
+  path: on the H100 it measured 2-3x slower end to end (PERF.md).
+
+Lanes of a chunk past the window end need no mask: they are real particles
+at least one whole cell (= the 2H support) away, or inert segment pads, so
+the q < 2 support test kills them.  Self-pairs need no exclusion either: the
+density self-term IS the reference's explicit m*W(0)
+(`pi_sph_fluid.c:274-275`) and force self-terms vanish at dx = dy = 0.  The
+only mask guards the end of the candidate array itself.
+
+The boundary asymmetries (fluid-only pressure, fluid-rho viscosity
+denominator, `pi_sph_fluid.c:350,362`) are folded into per-candidate rows
 c_press_j (p/rho^2 fluid, 0 boundary), re_j (rho/2 fluid, 0 boundary) and
-a_j; all computed once per particle, not once per pair lane.  The two
-viscosity divides fuse into one: mu/denom = h*xy_uv /
-((r^2 + eps*h^2) * denom).
+a_j (0.5 fluid, 1.0 boundary), computed once per particle: the viscosity
+denominator is one fma, denom = a_j*rho_i + re_j, and the two viscosity
+divides fuse into one, mu/denom = h*xy_uv / ((r^2 + eps*h^2) * denom).
+Pad queries (m = 0, rho = 0) may produce 0/0 on their own lanes; every such
+value is discarded by the final q_valid select.
 """
 
 from __future__ import annotations
@@ -61,24 +47,21 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ...config import SPHConfig
 from ...core.pair_terms import artificial_pressure_ref_w
-from .triple import TripleSpec
+from .triple import INERT_X, TripleSpec
 
 X, Y, U, V, M = range(5)
 CP, RE, A = 5, 6, 7      # force-candidate rows: c_press, rho_eff, denom weight
 DX, DY, DM = 0, 1, 2     # slim density-array rows
 NFIELDS = 8
-LANE = 128
+CHUNK = 16               # candidate lanes per kernel loop iteration
+NUM_WARPS = 1
 
-__all__ = ["density_window_call", "forces_window_call"]
-
-# Measured dead lever (see module docstring): per-block pl.when dispatch on
-# the true fetch length costs ~+275 ns/block on v5e — far more than the
-# skipped chunks save.  Kept switchable for future hardware probes only.
-CHUNK_DISPATCH = False
+__all__ = ["density_window_call", "forces_window_call",
+           "density_plain", "forces_plain"]
 
 
 def _unnorm_wref(cfg: SPHConfig) -> float:
@@ -87,368 +70,201 @@ def _unnorm_wref(cfg: SPHConfig) -> float:
     return float(artificial_pressure_ref_w(cfg)) / float(cfg.kernel_norm)
 
 
-def _start_windows(spec, pairs, get_start, slot):
-    """Issue one DMA per (block, candidate array).  pairs: list of
-    (hbm_ref, stage_ref, sem_ref); each copy moves ALL rows of its array —
-    Mosaic requires HBM row slices to be 8-aligned, so sub-row DMAs are
-    not expressible (keep candidate arrays exactly as tall as needed).
+class _Consts:
+    """f32 constants of both passes, built from the config once per trace."""
 
-    Dual-plane specs guarantee 128-aligned starts (block_windows) — assert
-    that to the compiler; exact-start specs (planes == 1) fetch at the
-    window's true lane offset."""
-    for b in range(spec.nqb):
-        a = get_start(b)
-        if spec.planes != 1:
-            a = pl.multiple_of(a, LANE)
-
-        def _go(a=a, b=b):
-            for hbm, stage, sem in pairs:
-                pltpu.make_async_copy(
-                    hbm.at[:, pl.ds(a, spec.cap)],
-                    stage.at[slot, b], sem.at[slot, b],
-                ).start()
-
-        _go()
+    def __init__(self, cfg: SPHConfig):
+        h = jnp.float32(cfg.h)
+        self.norm = jnp.float32(cfg.kernel_norm)
+        self.half_inv_h = jnp.float32(0.5) / h
+        self.two_inv_h = jnp.float32(2.0) / h
+        self.inv_rho0 = jnp.float32(1.0 / cfg.rho_0)
+        self.tait_b = jnp.float32(cfg.tait_b)
+        self.eps_h2 = jnp.float32(cfg.eps_visc) * h * h
+        # -alpha*C*h, with the h of mu folded in (`pi_sph_fluid.c:328-334`)
+        self.nach = jnp.float32(-cfg.alpha_visc) * jnp.float32(cfg.c) * h
+        inv_wref4 = (jnp.float32(1.0) / jnp.float32(_unnorm_wref(cfg))) ** 4
+        self.k_ap4 = jnp.float32(cfg.k_artificial_pressure) * inv_wref4
+        # a = g - sum coef*grad_W; grad coefficient = norm*(-5)*t1^3/h^2
+        # factored out of the lane sum: a = g + (5*norm/h^2) * sum_raw
+        self.gfac = jnp.float32(5.0) * self.norm / (h * h)
 
 
-def _wait_windows(spec, pairs, get_start, slot):
-    for b in range(spec.nqb):
-        a = get_start(b)
-        if spec.planes != 1:
-            a = pl.multiple_of(a, LANE)
-
-        def _wait(a=a, b=b):
-            for hbm, stage, sem in pairs:
-                pltpu.make_async_copy(
-                    hbm.at[:, pl.ds(a, spec.cap)],
-                    stage.at[slot, b], sem.at[slot, b],
-                ).wait()
-
-        _wait()
+def _density_terms(k: _Consts, qx, qy, cx, cy, cm):
+    """Unnormalized density summands m_j * W_un(r_ij) (broadcasting)."""
+    dx = qx - cx
+    dy = qy - cy
+    r = jnp.sqrt(dx * dx + dy * dy)
+    t1 = jnp.maximum(1.0 - k.half_inv_h * r, 0.0)     # support == q < 2
+    t1sq = t1 * t1
+    return (cm * (t1sq * t1sq)) * (1.0 + k.two_inv_h * r)
 
 
-def _doublebuffer(spec, interpret, n_tiles, i, ib, pairs, w_start, w_start_n):
-    """Cross-tile double buffering: tile 0 fetches its own windows, every
-    tile prefetches tile i+1's, all unconditional (predicated start/wait
-    pairs unbalance DMA semaphores — the round-1 hardware NaN bug)."""
-    cur = lambda b: w_start[ib, b]
-    nxt = lambda b: jnp.where(ib == 7, w_start_n[0, b],
-                              w_start[jnp.minimum(ib + 1, 7), b])
-    if interpret:
-        _start_windows(spec, pairs, cur, 0)
-        return 0, cur
-
-    slot = i % 2
-
-    @pl.when(i == 0)
-    def _():
-        _start_windows(spec, pairs, cur, slot)
-
-    @pl.when(i + 1 < n_tiles)
-    def _():
-        _start_windows(spec, pairs, nxt, (i + 1) % 2)
-
-    return slot, cur
+def _eos(k: _Consts, rho):
+    """Tait EOS and the per-particle force inputs p/rho^2, rho/2
+    (`pi_sph_fluid.c:294-301`) on reduced density sums."""
+    ratio = rho * k.inv_rho0
+    rr2 = ratio * ratio
+    rr4 = rr2 * rr2
+    p = jnp.maximum(k.tait_b * (rr4 * rr2 * ratio - 1.0), 0.0)
+    cpress = jnp.where(rho > 0.0, p / (rho * rho), 0.0)
+    return p, cpress
 
 
-def _chunk_dispatch(flen_b, n_chunks, body):
-    """Chunk-count dispatch point.  Default (CHUNK_DISPATCH=False): always
-    compute every chunk — the branch-per-block form measured ~+275 ns/block
-    on v5e (tools/skip_probe.py), losing far more than the skipped VPU work
-    saves.  The adaptive form is kept only for probing other hardware."""
-    if not CHUNK_DISPATCH or n_chunks == 1:
-        body(n_chunks)
-        return
-    for k in range(1, n_chunks + 1):
-        if k == 1:
-            cond = flen_b <= LANE
-        elif k < n_chunks:
-            cond = (flen_b > (k - 1) * LANE) & (flen_b <= k * LANE)
-        else:
-            cond = flen_b > (k - 1) * LANE
+def _force_terms(k: _Consts, q, c):
+    """(coef*dx, coef*dy) pair summands.  q: query columns (x, y, u, v,
+    rho, c_press); c: candidate rows (x, y, u, v, m, cp, re, a)."""
+    qx, qy, qu, qv, q_rho, q_press = q
+    cx, cy, cu, cv, cm, ccp, cre, ca = c
+    dx = qx - cx
+    dy = qy - cy
+    du = qu - cu
+    dv = qv - cv
+    r2 = dx * dx + dy * dy
+    r = jnp.sqrt(r2)
+    t1 = jnp.maximum(1.0 - k.half_inv_h * r, 0.0)
+    t1sq = t1 * t1
+    t13 = t1sq * t1
+    w_un = (t1sq * t1sq) * (1.0 + k.two_inv_h * r)
+    # symmetric pressure (`pi_sph_fluid.c:321`); c_press is 0 on boundary
+    # lanes -> fluid-only term (`pi_sph_fluid.c:350`)
+    press = q_press + ccp
+    # Macklin artificial pressure (`pi_sph_fluid.c:325`)
+    w2 = w_un * w_un
+    artif = k.k_ap4 * (w2 * w2)
+    # Monaghan viscosity; min() gates approaching pairs (xy_uv < 0) exactly
+    # like the reference's compare+select: others give 0/den = 0
+    xy_uv = dx * du + dy * dv
+    den = (r2 + k.eps_h2) * (ca * q_rho + cre)
+    visc = (k.nach * jnp.minimum(xy_uv, 0.0)) / den
+    coef = cm * (press + artif + visc) * t13
+    return coef * dx, coef * dy
 
-        @pl.when(cond)
-        def _(k=k):
-            body(k)
+
+def _kick(k: _Consts, g, qm, sx, sy, qu, qv, half_dt, damp):
+    """Accelerations from the reduced sums and the trailing half-kick."""
+    q_valid = qm > 0.0
+    au = jnp.where(q_valid, g[0] + k.gfac * sx, 0.0)
+    av = jnp.where(q_valid, g[1] + k.gfac * sy, 0.0)
+    half_f = jnp.float32(half_dt)
+    damp_f = jnp.float32(damp)
+    return au, av, (qu + half_f * au) * damp_f, (qv + half_f * av) * damp_f
 
 
-def _pad8(arr):
-    n = arr.shape[0]
-    pad = (-n) % 8 + 8
-    return jnp.pad(arr, ((0, pad), (0, 0)))
-
-
-def _span_specs(spec):
-    here = pl.BlockSpec((8, spec.nqb), lambda i: (i // 8, 0), memory_space=pltpu.SMEM)
-    ahead = pl.BlockSpec((8, spec.nqb), lambda i: (i // 8 + 1, 0), memory_space=pltpu.SMEM)
-    return here, ahead
+def _with_cols(tile, cols: dict):
+    """Replace columns of a (rows, k) register tile: one store per tile."""
+    col = jax.lax.broadcasted_iota(jnp.int32, tile.shape, 1)
+    for j, v in cols.items():
+        tile = jnp.where(col == j, v[:, None], tile)
+    return tile
 
 
 # ---------------------------------------------------------------------------
-# density
+# Triton kernels
 # ---------------------------------------------------------------------------
 
 
-def _density_kernel(
-    w_start, w_start_n,                   # (8, nqb) SMEM blocks (+ next-tile)
-    flen_s,                               # (8, nqb) SMEM true fetch lengths
-    q_ref,                                # (tq, 8) queries
-    geo_hbm,                              # (4, 2L) x, y, m~, 0 (dual-plane)
-    geo8_ref,                             # (tq, 8): x,y,u,v,m,cp,re,a=0.5 —
-                                          # the fluid force-candidate rows
-    rp_ref,                               # (tq, 2): rho, p (the state update)
-    stage, sem,
-    *, cfg: SPHConfig, spec: TripleSpec, n_tiles: int, interpret: bool,
-):
-    i = pl.program_id(0)
-    ib = i % 8
-    qb = spec.qb
-    pairs = [(geo_hbm, stage, sem)]
-    slot, cur = _doublebuffer(spec, interpret, n_tiles, i, ib,
-                              pairs, w_start, w_start_n)
-    _wait_windows(spec, pairs, cur, slot)
-
-    norm = jnp.float32(cfg.kernel_norm)
-    two_inv_h = jnp.float32(2.0) / jnp.float32(cfg.h)
-    half_inv_h = jnp.float32(0.5) / jnp.float32(cfg.h)
-    inv_rho0 = jnp.float32(1.0 / cfg.rho_0)
-    tait_b = jnp.float32(cfg.tait_b)
-
-    # The kernel assembles the FLUID force-candidate rows itself (round 4):
-    # geo8 = [x, y, u, v, m, cp, re, a=0.5] is exactly what the force gather
-    # redistributes, so XLA's per-tick column-concat of packed[:, 0:5] with
-    # the EOS outputs (and its broadcast/layout copies — ~0.3 ms/tick in the
-    # round-4 trace) is replaced by one whole-tile VMEM copy here.  Cols 5-7
-    # (stale rho/p and the float id) are overwritten below before the tile
-    # ends: cp/re per block, the constant a-weight per tile.
-    geo8_ref[:, :] = q_ref[:, :]
-    geo8_ref[:, A:A + 1] = jnp.full((spec.tq, 1), 0.5, jnp.float32)
-
-    # hoist query columns once per tile ((tq,1) extractions are sublane
-    # relayouts; per-block (qb,1) extractions would cost the same EACH)
-    qx_t = q_ref[:, X].reshape(spec.tq, 1)
-    qy_t = q_ref[:, Y].reshape(spec.tq, 1)
-
-    n_chunks = spec.cap // LANE
-    for b in range(spec.nqb):
-        qlo = b * qb
-        qx = qx_t[qlo:qlo + qb]          # free static sub-slices
-        qy = qy_t[qlo:qlo + qb]
-
-        def body(used, b=b, qx=qx, qy=qy, qlo=qlo):
-            acc = jnp.zeros((qb, LANE), jnp.float32)
-            for c in range(used):
-                lo = c * LANE
-                cx = stage[slot, b, DX, lo:lo + LANE].reshape(1, LANE)
-                cy = stage[slot, b, DY, lo:lo + LANE].reshape(1, LANE)
-                cm = stage[slot, b, DM, lo:lo + LANE].reshape(1, LANE)
-                dx = qx - cx
-                dy = qy - cy
-                r = jnp.sqrt(dx * dx + dy * dy)
-                t1 = jnp.maximum(1.0 - half_inv_h * r, 0.0)  # support == q<2
-                t1sq = t1 * t1
-                acc = acc + (cm * (t1sq * t1sq)) * (1.0 + two_inv_h * r)
-            # self term included.  Tait EOS + the per-particle force inputs
-            # p/rho^2 and rho/2 run IN-KERNEL on the reduced (qb, 1) column
-            # (`pi_sph_fluid.c:294-301`): the round-4 device trace showed the
-            # XLA epilogue (squeeze -> EOS fusion -> 4-column stack) costing
-            # ~0.3-0.4 ms/tick in T(1024)<->T(8,128) layout copies alone —
-            # a dozen VPU ops on the already-resident column are ~free here.
-            rho = norm * jnp.sum(acc, axis=1, keepdims=True)
-            ratio = rho * inv_rho0
-            rr2 = ratio * ratio
-            rr4 = rr2 * rr2
-            p = jnp.maximum(tait_b * (rr4 * rr2 * ratio - 1.0), 0.0)
-            # no rho > 0 guard divide: pad queries (rho = 0) give p = 0 and
-            # 0/0 = NaN, killed by the select (NaN never escapes a select on
-            # TPU — same argument as the viscosity denominator)
-            cpress = jnp.where(rho > 0.0, p / (rho * rho), 0.0)
-            geo8_ref[qlo:qlo + qb, CP:CP + 1] = cpress
-            geo8_ref[qlo:qlo + qb, RE:RE + 1] = 0.5 * rho
-            rp_ref[qlo:qlo + qb, 0:1] = rho
-            rp_ref[qlo:qlo + qb, 1:2] = p
-
-        _chunk_dispatch(flen_s[ib, b], n_chunks, body)
+def _n_chunks(w_len, cap):
+    return (jnp.minimum(w_len, cap) + (CHUNK - 1)) // CHUNK
 
 
-def density_window_call(q_packed, geo_d, ctx_start, ctx_flen, cfg: SPHConfig,
+def _load_row(ref, row, start, length, fill):
+    """CHUNK lanes of candidate row ``row`` from ``start`` (any offset)."""
+    ok = start + jnp.arange(CHUNK, dtype=jnp.int32) < length
+    return plgpu.load(ref.at[row, pl.ds(start, CHUNK)], mask=ok, other=fill)
+
+
+def _density_kernel(ws_ref, wl_ref, q_ref, geo_ref, geo8_ref, rp_ref, *,
+                    cfg: SPHConfig, cap: int, length: int):
+    k = _Consts(cfg)
+    b = pl.program_id(0)
+    start = ws_ref[b]
+    qx = q_ref[:, X][:, None]
+    qy = q_ref[:, Y][:, None]
+
+    def body(c, acc):
+        s = start + c * CHUNK
+        cx = _load_row(geo_ref, DX, s, length, INERT_X)
+        cy = _load_row(geo_ref, DY, s, length, INERT_X)
+        cm = _load_row(geo_ref, DM, s, length, 0.0)
+        return acc + _density_terms(k, qx, qy, cx[None, :], cy[None, :],
+                                    cm[None, :])
+
+    acc = jax.lax.fori_loop(0, _n_chunks(wl_ref[b], cap), body,
+                            jnp.zeros(qx.shape[:1] + (CHUNK,), jnp.float32))
+    rho = k.norm * jnp.sum(acc, axis=1)
+    p, cpress = _eos(k, rho)
+    # geo8 = the fluid force-candidate rows [x, y, u, v, m, cp, re, a=0.5]
+    geo8_ref[...] = _with_cols(q_ref[...], {
+        CP: cpress, RE: 0.5 * rho, A: jnp.full_like(rho, 0.5)})
+    rp_ref[...] = _with_cols(jnp.zeros(rp_ref.shape, jnp.float32),
+                             {0: rho, 1: p})
+
+
+def density_window_call(q_packed, geo_d, w_start, w_len, cfg: SPHConfig,
                         spec: TripleSpec, interpret: bool = False):
     """Returns (geo8, rp): the (n_layout, 8) fluid force-candidate rows
     [x, y, u, v, m, cp, re, a=0.5] ready for the force gather, and the
     (n_layout, 2) [rho, p] state-update columns."""
-    n_tiles = spec.n_tiles
-    ws = _pad8(ctx_start)
-    fl = _pad8(ctx_flen)
-    here, ahead = _span_specs(spec)
-    grid_spec = pl.GridSpec(
-        grid=(n_tiles,),
-        in_specs=[
-            here, ahead, here,
-            pl.BlockSpec((spec.tq, NFIELDS), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.HBM),
-        ],
-        out_specs=[
-            pl.BlockSpec((spec.tq, NFIELDS), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((spec.tq, 2), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2, spec.nqb, 4, spec.cap), jnp.float32),
-            pltpu.SemaphoreType.DMA((2, spec.nqb)),
-        ],
-    )
-    kernel = functools.partial(_density_kernel, cfg=cfg, spec=spec,
-                               n_tiles=n_tiles, interpret=interpret)
+    qb = spec.qb
+    n_blocks = spec.n_layout // qb
+    kernel = functools.partial(_density_kernel, cfg=cfg, cap=spec.cap,
+                               length=geo_d.shape[1])
+    whole = pl.no_block_spec
     return pl.pallas_call(
         kernel,
         out_shape=[
             jax.ShapeDtypeStruct((spec.n_layout, NFIELDS), jnp.float32),
             jax.ShapeDtypeStruct((spec.n_layout, 2), jnp.float32),
         ],
-        grid_spec=grid_spec,
+        grid=(n_blocks,),
+        in_specs=[whole, whole,
+                  pl.BlockSpec((qb, NFIELDS), lambda i: (i, 0)),
+                  whole],
+        out_specs=[pl.BlockSpec((qb, NFIELDS), lambda i: (i, 0)),
+                   pl.BlockSpec((qb, 2), lambda i: (i, 0))],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS),
         interpret=interpret,
-    )(ws, ws, fl, q_packed, geo_d)
+        name="sph_density",
+    )(w_start, w_len, q_packed, geo_d)
 
 
-# ---------------------------------------------------------------------------
-# forces
-# ---------------------------------------------------------------------------
-
-
-def _forces_kernel(
-    w_start, w_start_n,
-    flen_s,                               # (8, nqb) SMEM true fetch lengths
-    g_ref,                                # (8, 2) SMEM gravity
-    q_ref,                                # (tq, 8)
-    d_ref,                                # (tq, 8) geo8: x,y,u,v,m,cp,re,a
-    rp_ref,                               # (tq, 2) rho, p (density output)
-    geo_hbm,                              # (8, 2L) x,y,u,v,m~,cp,re,a (dual)
-    pk_ref,                               # (tq, 8): the FINISHED next state
-                                          # [x, y, u2, v2, m, rho, p, id]
-    out_ref,                              # (tq, 2): du_dt, dv_dt
-    stage, sem,
-    *, cfg: SPHConfig, spec: TripleSpec, n_tiles: int, interpret: bool,
-    half_dt: float, damp: float,
-):
-    gx = g_ref[0, 0]
-    gy = g_ref[0, 1]
-    i = pl.program_id(0)
-    ib = i % 8
-    qb = spec.qb
-    pairs = [(geo_hbm, stage, sem)]
-    slot, cur = _doublebuffer(spec, interpret, n_tiles, i, ib,
-                              pairs, w_start, w_start_n)
-    _wait_windows(spec, pairs, cur, slot)
-
-    # trailing half-kick fused in-epilogue (round 4): the kernel emits the
-    # finished packed state [x, y, (u + half_dt*au)*damp, ..., m, rho, p,
-    # id] so XLA's per-tick _finish concat + acc column extracts die.  x,
-    # y, m, id ride the whole-tile copy; rho/p come from the density
-    # output; u2/v2 are written per block below.  half_dt = 0, damp = 1
-    # reproduces the priming pass (u unchanged) bitwise.
-    pk_ref[:, :] = q_ref[:, :]
-    pk_ref[:, 5:6] = rp_ref[:, 0:1]
-    pk_ref[:, 6:7] = rp_ref[:, 1:2]
-    half_f = jnp.float32(half_dt)
-    damp_f = jnp.float32(damp)
-
-    h = jnp.float32(cfg.h)
-    half_inv_h = jnp.float32(0.5) / h
-    two_inv_h = jnp.float32(2.0) / h
-    eps_h2 = jnp.float32(cfg.eps_visc) * h * h
-    # -alpha*C*h, with the h of mu folded in (`pi_sph_fluid.c:328-334`)
-    nach = jnp.float32(-cfg.alpha_visc) * jnp.float32(cfg.c) * h
-    inv_wref4 = (jnp.float32(1.0) / jnp.float32(_unnorm_wref(cfg))) ** 4
-    k_ap4 = jnp.float32(cfg.k_artificial_pressure) * inv_wref4
-    # a = g - sum coef*grad_W; grad coefficient = norm*(-5)*t1^3/h^2 factored
-    # out of the lane loop: a = g + (5*norm/h^2) * sum_raw
-    gfac = jnp.float32(5.0) * jnp.float32(cfg.kernel_norm) / (h * h)
-
-    # hoist query columns once per tile; per-block views are free sub-slices
-    qx_t = q_ref[:, X].reshape(spec.tq, 1)
-    qy_t = q_ref[:, Y].reshape(spec.tq, 1)
-    qu_t = q_ref[:, U].reshape(spec.tq, 1)
-    qv_t = q_ref[:, V].reshape(spec.tq, 1)
-    qm_t = q_ref[:, M].reshape(spec.tq, 1)
+def _forces_kernel(ws_ref, wl_ref, g_ref, q_ref, d_ref, rp_ref, geo_ref,
+                   pk_ref, out_ref, *, cfg: SPHConfig, cap: int, length: int,
+                   half_dt: float, damp: float):
+    k = _Consts(cfg)
+    b = pl.program_id(0)
+    start = ws_ref[b]
+    qcol = lambda j: q_ref[:, j][:, None]
     # per-query rho/cp from the density pass's geo8 rows: rho = 2*re is
-    # exact (re = rho/2 is an exact f32 halving and rho ~ 1e3 is never
-    # denormal), cp = p/rho^2 precomputed in the density epilogue
-    q_rho_t = (2.0 * d_ref[:, RE]).reshape(spec.tq, 1)
-    q_press_t = d_ref[:, CP].reshape(spec.tq, 1)
+    # exact (an f32 halving and doubling of a non-denormal value)
+    q = (qcol(X), qcol(Y), qcol(U), qcol(V),
+         (2.0 * d_ref[:, RE])[:, None], d_ref[:, CP][:, None])
+    fills = (INERT_X, INERT_X, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0)
 
-    n_chunks = spec.cap // LANE
-    for b in range(spec.nqb):
-        qlo = b * qb
-        qx = qx_t[qlo:qlo + qb]
-        qy = qy_t[qlo:qlo + qb]
-        qu = qu_t[qlo:qlo + qb]
-        qv = qv_t[qlo:qlo + qb]
-        qm = qm_t[qlo:qlo + qb]
-        q_rho = q_rho_t[qlo:qlo + qb]
-        q_press = q_press_t[qlo:qlo + qb]
+    def body(c, acc):
+        s = start + c * CHUNK
+        cand = tuple(_load_row(geo_ref, j, s, length, fills[j])[None, :]
+                     for j in range(NFIELDS))
+        fx, fy = _force_terms(k, q, cand)
+        return acc[0] + fx, acc[1] + fy
 
-        def body(used, b=b, qx=qx, qy=qy, qu=qu, qv=qv, qm=qm,
-                 q_rho=q_rho, q_press=q_press, qlo=qlo):
-            ax = jnp.zeros((qb, LANE), jnp.float32)
-            ay = jnp.zeros((qb, LANE), jnp.float32)
-            for c in range(used):
-                lo = c * LANE
-                cx = stage[slot, b, X, lo:lo + LANE].reshape(1, LANE)
-                cy = stage[slot, b, Y, lo:lo + LANE].reshape(1, LANE)
-                cu = stage[slot, b, U, lo:lo + LANE].reshape(1, LANE)
-                cv = stage[slot, b, V, lo:lo + LANE].reshape(1, LANE)
-                cm = stage[slot, b, M, lo:lo + LANE].reshape(1, LANE)
-                ccp = stage[slot, b, CP, lo:lo + LANE].reshape(1, LANE)
-                cre = stage[slot, b, RE, lo:lo + LANE].reshape(1, LANE)
-                ca = stage[slot, b, A, lo:lo + LANE].reshape(1, LANE)
-
-                dx = qx - cx
-                dy = qy - cy
-                du = qu - cu
-                dv = qv - cv
-                r2 = dx * dx + dy * dy
-                r = jnp.sqrt(r2)
-                t1 = jnp.maximum(1.0 - half_inv_h * r, 0.0)
-                t1sq = t1 * t1
-                t13 = t1sq * t1
-                w_un = (t1sq * t1sq) * (1.0 + two_inv_h * r)
-                # symmetric pressure (`pi_sph_fluid.c:321`); c_press is 0 on
-                # boundary lanes -> fluid-only term (`pi_sph_fluid.c:350`)
-                press = q_press + ccp
-                # Macklin artificial pressure (`pi_sph_fluid.c:325`)
-                w2 = w_un * w_un
-                artif = k_ap4 * (w2 * w2)
-                # Monaghan viscosity, both divides fused into one; the
-                # pair-mean vs fluid-only denominator asymmetry
-                # (`pi_sph_fluid.c:333,362`) is the per-candidate weight a:
-                # denom = 0.5*rho_i + rho_j/2 fluid, rho_i boundary.
-                # No denom > 0 guard: denom = 0 only for pad queries
-                # (rho_i = 0), whose lanes are zeroed by the q_valid select
-                # below — NaN/Inf cannot escape a select on TPU
-                xy_uv = dx * du + dy * dv
-                denom = ca * q_rho + cre
-                den = (r2 + eps_h2) * denom
-                # min() replaces the compare+select gate bitwise-exactly:
-                # approaching pairs (xy_uv < 0) keep nach*xy_uv/den, others
-                # get 0/den = 0 (den > 0 for every real-query lane)
-                visc = (nach * jnp.minimum(xy_uv, 0.0)) / den
-                coef = cm * (press + artif + visc) * t13
-                ax = ax + coef * dx
-                ay = ay + coef * dy
-
-            sx = jnp.sum(ax, axis=1, keepdims=True)
-            sy = jnp.sum(ay, axis=1, keepdims=True)
-            q_valid = qm > 0.0
-            au = jnp.where(q_valid, gx + gfac * sx, 0.0)
-            av = jnp.where(q_valid, gy + gfac * sy, 0.0)
-            out_ref[qlo:qlo + qb, 0:1] = au
-            out_ref[qlo:qlo + qb, 1:2] = av
-            pk_ref[qlo:qlo + qb, 2:3] = (qu + half_f * au) * damp_f
-            pk_ref[qlo:qlo + qb, 3:4] = (qv + half_f * av) * damp_f
-
-        _chunk_dispatch(flen_s[ib, b], n_chunks, body)
+    zero = jnp.zeros((q_ref.shape[0], CHUNK), jnp.float32)
+    ax, ay = jax.lax.fori_loop(0, _n_chunks(wl_ref[b], cap), body,
+                               (zero, zero))
+    g = (g_ref[0], g_ref[1])
+    au, av, u2, v2 = _kick(k, g, q_ref[:, M], jnp.sum(ax, axis=1),
+                           jnp.sum(ay, axis=1), q_ref[:, U], q_ref[:, V],
+                           half_dt, damp)
+    # the finished next state [x, y, u2, v2, m, rho, p, id]
+    pk_ref[...] = _with_cols(q_ref[...], {
+        U: u2, V: v2, 5: rp_ref[:, 0], 6: rp_ref[:, 1]})
+    out_ref[...] = _with_cols(jnp.zeros(out_ref.shape, jnp.float32),
+                              {0: au, 1: av})
 
 
-def forces_window_call(q_packed, geo8, rp, geo_f, ctx_start, ctx_flen, g,
+def forces_window_call(q_packed, geo8, rp, geo_f, w_start, w_len, g,
                        cfg: SPHConfig, spec: TripleSpec,
                        half_dt: float = 0.0, damp: float = 1.0,
                        interpret: bool = False):
@@ -457,41 +273,82 @@ def forces_window_call(q_packed, geo8, rp, geo_f, ctx_start, ctx_flen, g,
     the finished packed state after the trailing half-kick (u2 =
     (u + half_dt*au)*damp; the defaults reproduce the priming pass, u
     unchanged) and the accelerations for the next tick's leading kick."""
-    n_tiles = spec.n_tiles
-    ws = _pad8(ctx_start)
-    fl = _pad8(ctx_flen)
-    here, ahead = _span_specs(spec)
-    grid_spec = pl.GridSpec(
-        grid=(n_tiles,),
-        in_specs=[
-            here, ahead, here,
-            # gravity as (8, 2) SMEM: a (1, 2) block intermittently read
-            # garbage on v5e (round-1 finding)
-            pl.BlockSpec((8, 2), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((spec.tq, NFIELDS), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((spec.tq, NFIELDS), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((spec.tq, 2), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.HBM),
-        ],
-        out_specs=[
-            pl.BlockSpec((spec.tq, NFIELDS), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((spec.tq, 2), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2, spec.nqb, NFIELDS, spec.cap), jnp.float32),
-            pltpu.SemaphoreType.DMA((2, spec.nqb)),
-        ],
-    )
-    kernel = functools.partial(_forces_kernel, cfg=cfg, spec=spec,
-                               n_tiles=n_tiles, interpret=interpret,
-                               half_dt=float(half_dt), damp=float(damp))
-    g2 = jnp.broadcast_to(jnp.asarray(g, jnp.float32), (8, 2))
+    qb = spec.qb
+    n_blocks = spec.n_layout // qb
+    kernel = functools.partial(_forces_kernel, cfg=cfg, cap=spec.cap,
+                               length=geo_f.shape[1], half_dt=float(half_dt),
+                               damp=float(damp))
+    whole = pl.no_block_spec
+    rows8 = pl.BlockSpec((qb, NFIELDS), lambda i: (i, 0))
+    rows2 = pl.BlockSpec((qb, 2), lambda i: (i, 0))
     return pl.pallas_call(
         kernel,
         out_shape=[
             jax.ShapeDtypeStruct((spec.n_layout, NFIELDS), jnp.float32),
             jax.ShapeDtypeStruct((spec.n_layout, 2), jnp.float32),
         ],
-        grid_spec=grid_spec,
+        grid=(n_blocks,),
+        in_specs=[whole, whole, whole, rows8, rows8, rows2, whole],
+        out_specs=[rows8, rows2],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS),
         interpret=interpret,
-    )(ws, ws, fl, g2, q_packed, geo8, rp, geo_f)
+        name="sph_forces",
+    )(w_start, w_len, jnp.asarray(g, jnp.float32).reshape(2),
+      q_packed, geo8, rp, geo_f)
+
+
+# ---------------------------------------------------------------------------
+# plain jax.numpy reference (same layout and arguments)
+# ---------------------------------------------------------------------------
+
+
+def _windows(cand, w_start, cap, fills):
+    """(k, L) candidate rows -> k arrays (n_blocks, 1, cap): each block's
+    window from its start, lanes past the array end replaced by ``fills``."""
+    n_rows, length = cand.shape
+    idx = w_start.reshape(-1, 1) + jnp.arange(cap, dtype=jnp.int32)
+    ok = idx < length
+    idx = jnp.minimum(idx, length - 1)
+    return tuple(jnp.where(ok, cand[j][idx], fills[j])[:, None, :]
+                 for j in range(n_rows))
+
+
+def density_plain(q_packed, geo_d, w_start, w_len, cfg: SPHConfig,
+                  spec: TripleSpec):
+    """``density_window_call`` in plain jax.numpy (all ``cap`` lanes)."""
+    del w_len
+    k = _Consts(cfg)
+    nb, qb = spec.n_layout // spec.qb, spec.qb
+    cx, cy, cm, _ = _windows(geo_d, w_start, spec.cap,
+                             (INERT_X, INERT_X, 0.0, 0.0))
+    qx = q_packed[:, X].reshape(nb, qb, 1)
+    qy = q_packed[:, Y].reshape(nb, qb, 1)
+    rho = k.norm * jnp.sum(_density_terms(k, qx, qy, cx, cy, cm),
+                           axis=2).reshape(-1)
+    p, cpress = _eos(k, rho)
+    geo8 = _with_cols(q_packed, {CP: cpress, RE: 0.5 * rho,
+                                 A: jnp.full_like(rho, 0.5)})
+    return geo8, jnp.stack([rho, p], axis=1)
+
+
+def forces_plain(q_packed, geo8, rp, geo_f, w_start, w_len, g,
+                 cfg: SPHConfig, spec: TripleSpec, half_dt: float = 0.0,
+                 damp: float = 1.0):
+    """``forces_window_call`` in plain jax.numpy (all ``cap`` lanes)."""
+    del w_len
+    k = _Consts(cfg)
+    nb, qb = spec.n_layout // spec.qb, spec.qb
+    fills = (INERT_X, INERT_X, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0)
+    cand = _windows(geo_f, w_start, spec.cap, fills)
+    col = lambda a: a.reshape(nb, qb, 1)
+    q = (col(q_packed[:, X]), col(q_packed[:, Y]), col(q_packed[:, U]),
+         col(q_packed[:, V]), col(2.0 * geo8[:, RE]), col(geo8[:, CP]))
+    fx, fy = _force_terms(k, q, cand)
+    g = jnp.asarray(g, jnp.float32)
+    au, av, u2, v2 = _kick(k, (g[0], g[1]), q_packed[:, M],
+                           jnp.sum(fx, axis=2).reshape(-1),
+                           jnp.sum(fy, axis=2).reshape(-1),
+                           q_packed[:, U], q_packed[:, V], half_dt, damp)
+    pk = _with_cols(q_packed, {U: u2, V: v2, 5: rp[:, 0], 6: rp[:, 1]})
+    return pk, jnp.stack([au, av], axis=1)

@@ -1,11 +1,11 @@
 """Multi-chip WCSPH: slab domain decomposition over a device mesh.
 
 The reference's only parallelism is 4 OpenMP threads in one address space
-(`pi_sph_fluid.c:610`, SURVEY.md §2 #18).  The TPU scale-out equivalent
+(`pi_sph_fluid.c:610`, SURVEY.md §2 #18).  The accelerator scale-out equivalent
 (SURVEY.md §5) is **spatial domain decomposition**: the x-axis is cut into D
 slabs, one per device; each device owns the particles inside its slab in
-fixed-capacity arrays, and per step exchanges with its two neighbors over
-ICI, via `jax.lax.ppermute` inside `shard_map`:
+fixed-capacity arrays, and per step exchanges with its two neighbors
+via `jax.lax.ppermute` inside `shard_map`:
 
 * **migration** — particles that drifted across a slab edge move to the
   neighbor (payload: x, y, u, v, m, id; accelerations are recomputed),
@@ -73,9 +73,9 @@ def _take_first(mask, arrays, cap):
     """Stable-pack slots where ``mask`` holds into the first ``cap`` lanes.
     Returns (packed arrays, lane validity, overflow count).
 
-    Same-dtype arrays are stacked and gathered as rows: per-array 1-D
-    element gathers are the slow path on TPU (~5x a row gather), and this
-    runs several times per sharded step.
+    Same-dtype arrays are stacked and gathered as rows: one row gather
+    instead of one 1-D element gather per array, several times per sharded
+    step.
     """
     order = jnp.argsort(~mask, stable=True).astype(jnp.int32)
     n = mask.shape[0]

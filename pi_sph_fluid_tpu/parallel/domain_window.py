@@ -3,10 +3,10 @@
 Round 1's DomainDecomposition (parallel/domain.py) proved slab domain
 decomposition with ppermute migration + two-phase halo exchange, but ran
 the jnp oracle passes per slab — correctness-only at scale.  This is the
-production variant: each device runs the round-2 window-kernel pipeline
+production variant: each device runs the window-kernel pipeline
 (ops/pallas/triple.py + ops/pallas/window_kernels.py) on a *local* grid.
 
-Design (TPU-first, SURVEY.md §5 "distributed communication backend"):
+Design (SURVEY.md §5 "distributed communication backend"):
 
 * slabs are **cell-aligned**: device s owns grid columns
   [s*k, (s+1)*k), k = ceil(m/d) — so local cell indexing is a column
@@ -86,13 +86,10 @@ class WindowDomain:
         slab_cap: int | None = None,
         halo_cap: int | None = None,
         mig_cap: int | None = None,
-        tq: int = 256,
         qb: int = 16,
         cap: int = 256,
         seg_q: int = 2,
-        planes: int = 2,
         interpret: bool = False,
-        band: int | None = None,
     ):
         self.cfg = cfg
         self.mesh = mesh
@@ -178,8 +175,7 @@ class WindowDomain:
         # purely functionally)
         from ..ops.pallas.triple import triple_spec
 
-        self.spec = triple_spec(self.lcfg, n_local, nb_cap, tq, qb, cap,
-                                seg_q, planes, band)
+        self.spec = triple_spec(self.lcfg, n_local, nb_cap, qb, cap, seg_q)
         eng = object.__new__(WindowEngine)
         eng.cfg = self.lcfg
         eng.n_real = n_local
@@ -348,8 +344,8 @@ class WindowDomain:
             sp2 = fluid.u**2 + fluid.v**2
             rho_err = jnp.max(jnp.where(valid, fluid.rho - rho0, -rho0))
             speed2 = jnp.max(jnp.where(valid, sp2, 0.0))
-            # non-finite rows scream x1e6: TPU max-reductions DROP NaN, so
-            # a NaN'd slab would otherwise report healthy max stats
+            # non-finite rows scream x1e6: a max reduction need not
+            # propagate NaN, so a NaN'd slab could report healthy max stats
             probe = fluid.x + sp2 + fluid.rho
             bad = jnp.sum((valid & ~jnp.isfinite(probe)).astype(jnp.int32))
             overflow = overflow + jnp.minimum(bad, 1000) * jnp.int32(1_000_000)
@@ -531,8 +527,7 @@ class WindowDomain:
             rowidx_col = jnp.concatenate([
                 jnp.arange(n_input, dtype=jnp.float32),
                 jnp.full((spec.n_layout - n_input,), -1.0, jnp.float32)])
-            # one concat, not a column .at-set: lane-dimension DUS rewrites
-            # the whole array through a masked slow path on TPU
+            # one concat, not a column .at-set
             packed = jnp.concatenate(
                 [packed[:, :5], rowidx_col[:, None], packed[:, 6:]], axis=1)
             pk, ctx, ov_w = eng._relayout(packed)
@@ -564,7 +559,7 @@ class WindowDomain:
                            rho_hi=None, sp2_hi=None):
                 # rho_hi/sp2_hi: group-wide per-particle running maxima
                 # (pads zeroed) — the sampled final tick reports the GROUP
-                # max so interior-tick transients stay visible (ADVICE r4);
+                # max so interior-tick transients stay visible;
                 # the non-finite probe always reads the current state
                 rho0 = jnp.float32(cfg.rho_0)
                 q_valid = pk[:, 4] > 0
@@ -574,8 +569,8 @@ class WindowDomain:
                            if rho_hi is None else jnp.max(rho_hi) - rho0)
                 speed2 = (jnp.max(jnp.where(q_valid, sp2, 0.0))
                           if sp2_hi is None else jnp.max(sp2_hi))
-                # non-finite rows scream x1e6 (TPU max drops NaN; see the
-                # per-step stats block above)
+                # non-finite rows scream x1e6 (see the per-step stats block
+                # above)
                 probe = pk[:, 0] + sp2 + rho_col[:, 0]
                 bad = jnp.sum((q_valid & ~jnp.isfinite(probe)).astype(jnp.int32))
                 ovf = ovf.astype(jnp.int32) + \
@@ -603,12 +598,9 @@ class WindowDomain:
             st0 = tick_stats(pk, pk[:, 5:6], ov0, ov_by0)
 
             # carried-tick ghost refresh plumbing: whole-row gathers and ONE
-            # whole-row scatter.  The round-2 form scattered column slices
-            # (pk.at[ghost, 0:4].set) — a lane-dimension DUS, the measured
-            # v5e slow path suspected as the "sticky group slower than
-            # per-step" pathology (VERDICT r2 weak #1).  Row 4:8 values
-            # (m, stale rho/p, the GHOST_ID ownership marker in col 7) are
-            # taken from the ghost rows themselves so ownership survives.
+            # whole-row scatter.  Row 4:8 values (m, stale rho/p, the
+            # GHOST_ID ownership marker in col 7) are taken from the ghost
+            # rows themselves so ownership survives.
             ghost_all = jnp.concatenate([ghost_l, ghost_r])
             x_shift = jnp.concatenate([
                 jnp.full((halo_cap,), -(float(self.k_cols)), jnp.float32),
@@ -616,7 +608,7 @@ class WindowDomain:
             ]) * cell
 
             # group-wide running maxima (elementwise, no reduction, no
-            # collective — folded into the sampled final tick, ADVICE r4)
+            # collective — folded into the sampled final tick)
             rho_hi0 = jnp.where(pk[:, 4] > 0, pk[:, 5], 0.0)
             sp2_hi0 = pk[:, 2] ** 2 + pk[:, 3] ** 2   # pads carry u = v = 0
 
@@ -643,7 +635,7 @@ class WindowDomain:
                 ghost_rows = pk[jnp.minimum(ghost_all, spec.n_layout - 1)]
                 # senders' local frames differ by one slab width (col 0);
                 # cols 4:8 keep the ghost's own values (column rebuild by
-                # concat — lane-dim .at-sets are the slow path)
+                # concat)
                 new_rows = jnp.concatenate(
                     [(rec[:, 0] + x_shift)[:, None], rec[:, 1:4],
                      ghost_rows[:, 4:8]], axis=1)
@@ -736,28 +728,23 @@ class WindowDomain:
     # ------------------------------------------------------------------
     def make_render(self, rows: int = 64, cols: int = 128, qb: int = 8,
                     seg_q: int = 2):
-        """Per-slab metaball renderer — NO host gather (the round-3 dd
-        display was a synchronous full-state gather + jnp renderer, which
-        stalled the dispatch pipeline and could not scale).
+        """Per-slab metaball renderer with no host gather.
 
         Each device owns the pixels whose grid column falls in its slab
         (the same ``gcol // k`` rule particle migration uses), rendered in
-        LOCAL coordinates with the window field kernel over a local
-        relayout of slab + halo particles — a pixel's 2H support spans at
-        most one cell beyond the owned columns, well inside the 3-cell
-        halo strips.  One [x, y, m] halo ppermute per frame; the composed
-        global field is a tiny (d * n_layout_px) cross-device gather
-        (~KBs over ICI), then threshold + bit-pack as usual
-        (`pi_sph_fluid.c:380-411`).
+        LOCAL coordinates with the window field pass over a local relayout
+        of slab + halo particles — a pixel's 2H support spans at most one
+        cell beyond the owned columns, well inside the 3-cell halo strips.
+        One [x, y, m] halo ppermute per frame; the composed global field is
+        a tiny (d * n_layout_px) cross-device gather, then threshold +
+        bit-pack as usual (`pi_sph_fluid.c:380-411`).
 
         Returns ``render(state, frame_ctx=None) -> (framebuffer,
         overflow)`` — jit-able, so SimRunner fuses it into the per-dispatch
         executable exactly like the single-chip path."""
-        import functools
-
         from ..ops.grid import cell_ids
         from ..ops.pallas.triple import build_frame, triple_spec
-        from ..render.metaballs_window import (INERT_PX, field_call,
+        from ..render.metaballs_window import (INERT_PX, field_pass,
                                                field_scale_of, pixel_layout,
                                                pixel_window_cap,
                                                pixel_windows)
@@ -768,7 +755,6 @@ class WindowDomain:
         k, hc = self.k_cols, self.HALO_CELLS
         cell = np.float32(cfg.cell_length)
         slab_cap, halo_cap = self.slab_cap, self.halo_cap
-        tq = max(qb, 64)
 
         # ---- static per-device pixel layouts (local coordinates) ----------
         px, py = pixel_centers(cfg, rows, cols)
@@ -780,7 +766,7 @@ class WindowDomain:
             shift = np.float32(dev * k - hc) * cell
             lays.append((sel, pixel_layout(
                 lcfg, (px[sel] - shift).astype(np.float32),
-                py[sel].astype(np.float32), qb, tq)))
+                py[sel].astype(np.float32), qb)))
         n_layout = max(lay["n_layout"] for _, lay in lays)
         nqb_tot = n_layout // qb
         q_all = np.zeros((d, n_layout, 8), np.float32)
@@ -812,12 +798,10 @@ class WindowDomain:
         # candidate spec over the local fluid rows (slab + both halos)
         n_input = slab_cap + 2 * halo_cap
         cap = pixel_window_cap(cfg, cols, qb, seg_q)
-        fspec = triple_spec(lcfg, n_input, 0, tq, qb, cap, seg_q)
-        spec = fspec._replace(n_layout=n_layout)
+        fspec = triple_spec(lcfg, n_input, 0, qb, cap, seg_q)
         scale = jnp.float32(field_scale_of(cfg))
         cellj = jnp.float32(cfg.cell_length)
         inv_cell = jnp.float32(1.0) / cellj
-        interpret = self.interpret
 
         def gcol_of(x):
             return jnp.clip((x * inv_cell).astype(jnp.int32), 0,
@@ -840,7 +824,7 @@ class WindowDomain:
             xl = x - jnp.where(m_ > 0, shift, 0.0)
 
             # local renderer relayout (the WindowRenderer.field recipe on
-            # the local grid): sort + frame + slim-row gather + dual plane
+            # the local grid): sort + frame + slim-row gather
             keys = jnp.where(m_ > 0, cell_ids(xl, y, lcfg), lcfg.n_cells)
             order = jnp.argsort(keys, stable=True).astype(jnp.int32)
             counts = jnp.zeros(lcfg.n_cells + 2, jnp.int32).at[keys + 1].add(1)
@@ -848,19 +832,17 @@ class WindowDomain:
             bcsr0 = jnp.zeros(lcfg.n_cells + 1, jnp.int32)
             layout_src, trip_src, T = build_frame(fspec, lcfg, cell_starts,
                                                   bcsr0)
-            slim = jnp.stack([xl, y, m_, jnp.zeros_like(x)], axis=1)[order]
+            slim = jnp.stack([xl, y, m_], axis=1)[order]
             slim = jnp.pad(slim, ((0, fspec.n_layout - n_input), (0, 0)))
-            inert = jnp.asarray([[INERT_PX, INERT_PX, 0.0, 0.0]], jnp.float32)
+            inert = jnp.asarray([[INERT_PX, INERT_PX, 0.0]], jnp.float32)
             pk_r = jnp.concatenate([slim, inert], axis=0)[layout_src]
-            geo = jnp.concatenate([pk_r, inert], axis=0)[trip_src].T
-            geo = jnp.concatenate(
-                [geo, jnp.pad(geo[:, 64:], ((0, 0), (0, 64)))], axis=1)
+            cand = jnp.concatenate([pk_r, inert], axis=0)[trip_src].T
 
-            fetch, flen, ov = pixel_windows(T, c_first, c_last, has_q,
-                                            spec.cap, fspec.L, lcfg.n_cells)
-            out = field_call(lcfg, spec, interpret, q_pk, geo, fetch, flen)
+            w_start, w_len, ov = pixel_windows(T, c_first, c_last, has_q,
+                                               cap, lcfg.n_cells)
+            out = field_pass(lcfg, q_pk, cand, w_start, w_len, qb, cap)
             ov_all = jax.lax.psum((ov + ov_h).astype(jnp.int32), self.axis)
-            return out[:, 0], ov_all
+            return out, ov_all
 
         spec_p = P(self.axis)
         sharded = jax.shard_map(
@@ -883,8 +865,8 @@ class WindowDomain:
     # ------------------------------------------------------------------
     def gather(self, state: DomainState) -> FluidState:
         """Collect the global fluid state in original id order (host-side).
-        Multi-process meshes all-gather the slab arrays over DCN first
-        (parallel.launch.to_host), so the same call works on a pod."""
+        Multi-process meshes all-gather the slab arrays over the network first
+        (parallel.launch.to_host), so the same call works on a cluster."""
         from .launch import to_host
 
         ids = to_host(state.ids)
@@ -899,7 +881,7 @@ class WindowDomain:
         checkpoint including the leapfrog acceleration carry.  Feed back
         through ``init(fluid, au, av)`` (of this domain or a rebuilt one
         with different capacities) to resume bit-exactly.  Multi-process
-        meshes all-gather over DCN (every process returns the full
+        meshes all-gather over the network (every process returns the full
         checkpoint — the revert path needs it on every host)."""
         from .launch import to_host
 

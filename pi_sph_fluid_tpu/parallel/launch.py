@@ -1,15 +1,15 @@
-"""Multi-host (DCN) launch plumbing for the slab domain decomposition.
+"""Multi-host launch plumbing for the slab domain decomposition.
 
 The reference's entire parallelism story is one OpenMP region on one
-machine (`pi_sph_fluid.c:610`).  The TPU scale-out path (SURVEY.md §5
+machine (`pi_sph_fluid.c:610`).  The scale-out path (SURVEY.md §5
 "distributed communication backend") is slab domain decomposition over a
 device mesh — and past one host, that mesh must span *processes*: each
 host runs the same program, `jax.distributed.initialize` wires them into
 one JAX runtime, and the `Mesh` is built from the **global** device list
-so `shard_map`'s ppermute halo exchanges ride ICI within a host and DCN
-between hosts, exactly where XLA puts them.
+so `shard_map`'s ppermute halo exchanges ride the intra-host links within
+a host and the network between hosts, exactly where XLA puts them.
 
-Pod launch recipe (same binary on every host)::
+Cluster launch recipe (same binary on every host)::
 
     # host 0 (also the coordinator):
     python -m pi_sph_fluid_tpu.cli run --backend pallas-dd \
@@ -20,7 +20,7 @@ Pod launch recipe (same binary on every host)::
 The CPU-mesh analog (the test fixture, mirroring the reference's SDL
 backend substitution): every process forces the CPU platform with N
 virtual devices, so a 2-process x 4-device run exercises real
-cross-process collectives (gloo) with no TPU pod — see
+cross-process collectives (gloo) with no cluster — see
 tools/multihost_worker.py and tests/test_multihost.py.
 """
 
@@ -65,9 +65,9 @@ def to_host(arr):
 
     Single-process (or fully-replicated) arrays convert directly; an
     array sharded across processes is not fully addressable, so every
-    process all-gathers the global value over DCN first (tiled along the
+    process all-gathers the global value over the network first (tiled along the
     sharded dims).  Used by WindowDomain.gather/export so checkpoints and
-    host-side views work unchanged on a pod."""
+    host-side views work unchanged on a cluster."""
     import numpy as np
 
     if getattr(arr, "is_fully_addressable", True):

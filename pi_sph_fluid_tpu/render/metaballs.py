@@ -1,6 +1,6 @@
 """On-device Blinn metaball renderer -> SSD1306 page-packed framebuffer.
 
-Implements `draw_metaballs` (`pi_sph_fluid.c:380-411`) the TPU way while
+Implements `draw_metaballs` (`pi_sph_fluid.c:380-411`) on device while
 keeping the reference's one clever abstraction: **pixels are particles**
 (`pi_sph_fluid.c:567-577`) — pixel centers query the same counting-sort grid
 as the physics, so one neighbor engine serves both (SURVEY.md §3.3).

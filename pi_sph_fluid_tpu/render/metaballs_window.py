@@ -1,13 +1,12 @@
-"""Window-kernel metaball renderer — the round-2 production raster path.
+"""Window metaball renderer — the production raster path.
 
 Same math as render/metaballs.py (field = sum_j W_ij / W(px_width/2), lit
-when >= 1, `pi_sph_fluid.c:380-411`) over the round-2 candidate structures:
+when >= 1, `pi_sph_fluid.c:380-411`) over the engine's candidate structures:
 pixel centers are *static* queries (the reference's pixels-as-particles
 trick, `pi_sph_fluid.c:570-577`), laid out once at build into qb-quantized
-grid-row blocks; per frame the renderer rebuilds the fluid's segment
-array from live positions (hist + run-table, ops/pallas/triple.py) and a
-density-style kernel accumulates unweighted Wendland sums per pixel block
-window.
+grid-row blocks; each pixel block reads one contiguous candidate window and
+accumulates unweighted Wendland sums.  The field pass runs once per
+displayed frame, so it is plain jax.numpy over a (blocks, qb, cap) tile.
 
 Pixel blocks span far more grid columns than fluid blocks (pixels are
 sparser than particles at fine resolutions), so the window cap is computed
@@ -18,23 +17,15 @@ the frame — never silent.
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..config import SPHConfig
 from ..core.kernels import kernel_w_scalar
 from ..models.scene import pixel_centers
 from ..ops.grid import cell_ids
-from ..ops.pallas.triple import (TripleSpec, band_plan, build_frame,
-                                 take_banded)
-from ..ops.pallas.window_kernels import (_chunk_dispatch, _doublebuffer,
-                                         _pad8, _span_specs, _wait_windows,
-                                         LANE)
+from ..ops.pallas.triple import (LANE, build_frame, triple_spec,
+                                 window_overflow)
 from .metaballs import pack_framebuffer
 
 __all__ = ["WindowRenderer"]
@@ -42,7 +33,7 @@ __all__ = ["WindowRenderer"]
 INERT_PX = -1e6
 
 
-def pixel_layout(cfg: SPHConfig, px, py, qb: int, tq: int):
+def pixel_layout(cfg: SPHConfig, px, py, qb: int):
     """Static qb-quantized per-grid-row pixel layout (host-side numpy).
 
     Pixels are laid out once into blocks that never straddle grid rows, so
@@ -61,7 +52,7 @@ def pixel_layout(cfg: SPHConfig, px, py, qb: int, tq: int):
     row_count = np.bincount(grow, minlength=n_rows_g)
     rowcap = -(-row_count // qb) * qb
     rstart = np.concatenate([[0], np.cumsum(rowcap)])
-    n_layout = int(-(-max(rstart[-1], 1) // tq) * tq)
+    n_layout = int(-(-max(rstart[-1], 1) // qb) * qb)
     q = np.full((n_layout, 8), 0.0, np.float32)
     q[:, 0] = INERT_PX
     q[:, 1] = INERT_PX
@@ -100,54 +91,40 @@ def pixel_window_cap(cfg: SPHConfig, cols: int, qb: int, seg_q: int) -> int:
     return -(-cap // LANE) * LANE
 
 
-def pixel_windows(T, c_first, c_last, has_q, cap, plane_len, n_cells):
-    """Per-pixel-block candidate windows from the per-cell table T, with
-    dual-plane fetch rebasing and counted overflow (window-cap truncation
-    plus the L-budget guard build_frame stashes at T[n_cells, 2])."""
+def pixel_windows(T, c_first, c_last, has_q, cap, n_cells):
+    """Per-pixel-block candidate windows (w_start, w_len, overflow) from the
+    per-cell table T, with counted overflow (window-cap truncation plus the
+    L-budget guard build_frame stashes at T[n_cells, 2])."""
     T_lo = T[c_first]
     T_hi = T[c_last]
     w_start = jnp.where(has_q, T_lo[:, 0], 0).astype(jnp.int32)
     w_len = jnp.where(has_q, T_hi[:, 1] - T_lo[:, 0], 0).astype(jnp.int32)
-    extra = w_start % LANE
-    use_hi = extra >= 64
-    fetch = jnp.where(use_hi, plane_len + w_start - extra, w_start - extra)
-    extra_eff = extra - jnp.where(use_hi, 64, 0)
-    flen = extra_eff + w_len
-    overflow = jnp.minimum(jnp.sum(jnp.maximum(
-        flen - cap, 0).astype(jnp.float32)), 1e8).astype(jnp.int32)
-    overflow = overflow + jnp.minimum(T[n_cells, 2], 1000) * jnp.int32(1_000_000)
-    return fetch, flen, overflow
+    return w_start, w_len, window_overflow(T, w_len, cap, n_cells)
 
 
-def field_call(cfg: SPHConfig, spec: TripleSpec, interpret: bool,
-               q_packed, geo, fetch, flen):
-    """Invoke the pixel-field kernel over a (n_layout // tq)-tile grid."""
-    n_tiles = spec.n_layout // spec.tq
-    wsp = _pad8(fetch.reshape(n_tiles, spec.nqb))
-    flp = _pad8(flen.reshape(n_tiles, spec.nqb))
-    here, ahead = _span_specs(spec)
-    grid_spec = pl.GridSpec(
-        grid=(n_tiles,),
-        in_specs=[
-            here, ahead, here,
-            pl.BlockSpec((spec.tq, 8), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.HBM),
-        ],
-        out_specs=pl.BlockSpec((spec.tq, 1), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((2, spec.nqb, 4, spec.cap), jnp.float32),
-            pltpu.SemaphoreType.DMA((2, spec.nqb)),
-        ],
-    )
-    kernel = functools.partial(_field_kernel, cfg=cfg, spec=spec,
-                               n_tiles=n_tiles, interpret=interpret)
-    return pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((spec.n_layout, 1), jnp.float32),
-        grid_spec=grid_spec,
-        interpret=interpret,
-    )(wsp, wsp, flp, q_packed, geo)
+def field_pass(cfg: SPHConfig, q_packed, cand, w_start, w_len, qb: int,
+               cap: int):
+    """Unnormalized metaball field of every pixel slot: for each qb-pixel
+    block, the sum of [m > 0] * W_un(r) over its window's first ``cap``
+    lanes.  ``cand``: (3, L) candidate rows x, y, m.  Lanes past the window
+    are masked: a pixel cap can exceed the gap between segments."""
+    length = cand.shape[1]
+    lane = jnp.arange(cap, dtype=jnp.int32)
+    idx = jnp.minimum(w_start[:, None] + lane, length - 1)
+    live = (lane < w_len[:, None]) & (cand[2][idx] > 0.0)
+    cx = cand[0][idx][:, None, :]
+    cy = cand[1][idx][:, None, :]
+    qx = q_packed[:, 0].reshape(-1, qb, 1)
+    qy = q_packed[:, 1].reshape(-1, qb, 1)
+    dx = qx - cx
+    dy = qy - cy
+    r = jnp.sqrt(dx * dx + dy * dy)
+    h = jnp.float32(cfg.h)
+    t1 = jnp.maximum(1.0 - (jnp.float32(0.5) / h) * r, 0.0)
+    t1sq = t1 * t1
+    # unweighted sum: pixels count particles, not mass
+    w = (t1sq * t1sq) * (1.0 + (jnp.float32(2.0) / h) * r)
+    return jnp.sum(jnp.where(live[:, None, :], w, 0.0), axis=2).reshape(-1)
 
 
 def field_scale_of(cfg: SPHConfig) -> float:
@@ -161,108 +138,48 @@ def field_scale_of(cfg: SPHConfig) -> float:
     return float(np.float32(cfg.kernel_norm) / np.float32(w_ref))
 
 
-def _field_kernel(
-    w_start, w_start_n,
-    flen_s,           # (8, nqb) SMEM true fetch lengths
-    q_ref,            # (tq, 8) pixel tile: x, y in cols 0-1, valid in col 4
-    geo_hbm,          # (4, 2L) fluid candidates: x, y, m~, 0 (dual-plane)
-    out_ref,          # (tq, 1): unnormalized field
-    stage, sem,
-    *, cfg: SPHConfig, spec: TripleSpec, n_tiles: int, interpret: bool,
-):
-    i = pl.program_id(0)
-    ib = i % 8
-    qb = spec.qb
-    pairs = [(geo_hbm, stage, sem)]
-    slot, cur = _doublebuffer(spec, interpret, n_tiles, i, ib,
-                              pairs, w_start, w_start_n)
-    _wait_windows(spec, pairs, cur, slot)
-
-    two_inv_h = jnp.float32(2.0) / jnp.float32(cfg.h)
-    half_inv_h = jnp.float32(0.5) / jnp.float32(cfg.h)
-    qx_t = q_ref[:, 0].reshape(spec.tq, 1)
-    qy_t = q_ref[:, 1].reshape(spec.tq, 1)
-
-    n_chunks = spec.cap // LANE
-    for b in range(spec.nqb):
-        qlo = b * qb
-        qx = qx_t[qlo:qlo + qb]
-        qy = qy_t[qlo:qlo + qb]
-
-        def body(used, b=b, qx=qx, qy=qy, qlo=qlo):
-            acc = jnp.zeros((qb, LANE), jnp.float32)
-            for c in range(used):
-                lo = c * LANE
-                cx = stage[slot, b, 0, lo:lo + LANE].reshape(1, LANE)
-                cy = stage[slot, b, 1, lo:lo + LANE].reshape(1, LANE)
-                cm = stage[slot, b, 2, lo:lo + LANE].reshape(1, LANE)
-                dx = qx - cx
-                dy = qy - cy
-                r = jnp.sqrt(dx * dx + dy * dy)
-                t1 = jnp.maximum(1.0 - half_inv_h * r, 0.0)
-                t1sq = t1 * t1
-                # unweighted sum (pixels count particles, not mass); the
-                # m > 0 factor keeps boundary slots out if a merged array is
-                # reused — here candidates are fluid-only, m = validity gate
-                valid = jnp.where(cm > 0.0, 1.0, 0.0)
-                acc = acc + (valid * (t1sq * t1sq)) * (1.0 + two_inv_h * r)
-            out_ref[qlo:qlo + qb, 0:1] = jnp.sum(acc, axis=1, keepdims=True)
-
-        _chunk_dispatch(flen_s[ib, b], n_chunks, body)
-
-
 class WindowRenderer:
     """render(sim: PackedSim) -> page-packed uint8 framebuffer, on device."""
 
     def __init__(self, engine, rows: int = 64, cols: int = 128,
-                 qb: int = 8, seg_q: int = 2, interpret: bool | None = None):
+                 qb: int = 8, seg_q: int = 2):
         cfg = engine.cfg
         self.cfg = cfg
         self.rows, self.cols = rows, cols
-        self.interpret = engine.interpret if interpret is None else interpret
-        self.seg_q = seg_q
-
+        self.qb = qb
         self.field_scale = field_scale_of(cfg)
 
         # ---- static pixel layout: qb-quantized per-grid-row blocks --------
-        # wide tiles: thin (tq, 1) output blocks pay ~50 us/tile of pipeline
-        # overhead (measured 59 ms/frame at 1M with tq=8)
-        tq = max(qb, 64)
         px, py = pixel_centers(cfg, rows, cols)
-        lay = pixel_layout(cfg, px, py, qb, tq)
-        n_layout = lay["n_layout"]
+        lay = pixel_layout(cfg, px, py, qb)
         self.q_packed = jnp.asarray(lay["q"])
         self.unsort = jnp.asarray(lay["slots"])
         self.blk_c_first = jnp.asarray(lay["c_first"])
         self.blk_c_last = jnp.asarray(lay["c_last"])
         self.blk_has_q = jnp.asarray(lay["has_q"])
 
-        # window cap: block pixel extent in cells x cover rows x occupancy
-        cap = pixel_window_cap(cfg, cols, qb, seg_q)
-
-        n_fluid = engine.n_real
         # a private candidate spec over the fluid (no boundary): the
-        # renderer re-lays-out the fluid itself per frame, so it is
+        # renderer re-lays-out the fluid itself in field(), so it is
         # independent of the engine's layout parameters and exact for any
-        # state (no layout-staleness requirement, unlike round 1's renderer)
-        from ..ops.pallas.triple import triple_spec
-
-        self.fspec = triple_spec(cfg, n_fluid, 0, tq, qb, cap, seg_q)
-        # pixel-query tiling shares qb/cap but has its own static layout
-        self.spec = self.fspec._replace(n_layout=n_layout)
+        # state (no layout-staleness requirement)
+        self.cap = pixel_window_cap(cfg, cols, qb, seg_q)
+        self.fspec = triple_spec(cfg, engine.n_real, 0, qb, self.cap, seg_q)
 
         # frame-reuse mode (render_from_frame): pixel windows over the
         # ENGINE's candidate structure — window cap re-derived for the
         # engine's segment cover rows
-        self.engine_spec = engine.spec
         self.reuse_cap = pixel_window_cap(cfg, cols, qb, engine.spec.seg_q)
-        # planes pinned to 2: field_from_frame builds its own dual-plane
-        # geometry regardless of the engine's fetch encoding, so the
-        # renderer kernels keep the 128-aligned-start hint even when the
-        # engine itself runs exact-start (planes=1) windows
-        self.reuse_spec = engine.spec._replace(
-            n_layout=n_layout, tq=tq, qb=qb, cap=self.reuse_cap, planes=2)
         self.n_boundary = int(engine.b_geo.shape[0])
+
+    def _field(self, cand, T, cap):
+        """Scaled row-major pixel field and overflow over candidate rows
+        ``cand`` (x, y, m) windowed through the per-cell table ``T``."""
+        w_start, w_len, overflow = pixel_windows(
+            T, self.blk_c_first, self.blk_c_last, self.blk_has_q, cap,
+            self.cfg.n_cells)
+        out = field_pass(self.cfg, self.q_packed, cand, w_start, w_len,
+                         self.qb, cap)
+        return out[self.unsort] * jnp.float32(self.field_scale), overflow
 
     # ------------------------------------------------------------------
     def field(self, sim) -> tuple[jnp.ndarray, jnp.ndarray]:
@@ -270,7 +187,7 @@ class WindowRenderer:
 
         Re-lays-out the fluid from live positions (sort + frame build +
         gather, ops/pallas/triple.py) — exact for any state."""
-        cfg, spec, fspec = self.cfg, self.spec, self.fspec
+        cfg, fspec = self.cfg, self.fspec
         packed = sim.packed
         keys = jnp.where(packed[:, 4] > 0,
                          cell_ids(packed[:, 0], packed[:, 1], cfg), cfg.n_cells)
@@ -280,36 +197,23 @@ class WindowRenderer:
         bcsr0 = jnp.zeros(cfg.n_cells + 1, jnp.int32)
         layout_src, trip_src, T = build_frame(fspec, cfg, cell_starts, bcsr0)
 
-        # sorted slim rows [x, y, m, 0], sized to the renderer's layout
-        slim = jnp.concatenate(
-            [packed[:, 0:2], packed[:, 4:5],
-             jnp.zeros((packed.shape[0], 1), jnp.float32)], axis=1)[order]
+        # sorted slim rows [x, y, m], sized to the renderer's layout
+        slim = jnp.concatenate([packed[:, 0:2], packed[:, 4:5]], axis=1)[order]
         n_have = slim.shape[0]
         if n_have >= fspec.n_layout:
             slim = slim[: fspec.n_layout]   # drops only inert tail pads
         else:
             slim = jnp.pad(slim, ((0, fspec.n_layout - n_have), (0, 0)))
-        inert = jnp.asarray([[INERT_PX, INERT_PX, 0.0, 0.0]], jnp.float32)
-        slim_ext = jnp.concatenate([slim, inert], axis=0)
-        pk_r = slim_ext[layout_src]
-        geo = jnp.concatenate([pk_r, inert], axis=0)[trip_src].T
-        geo = jnp.concatenate([geo, jnp.pad(geo[:, 64:], ((0, 0), (0, 64)))], axis=1)
-
-        # pixel-block windows from the per-cell table (the L-budget guard
-        # build_frame stashes at T[n_cells, 2] is folded into overflow)
-        fetch, flen, overflow = pixel_windows(
-            T, self.blk_c_first, self.blk_c_last, self.blk_has_q,
-            spec.cap, fspec.L, cfg.n_cells)
-        out = field_call(cfg, spec, self.interpret, self.q_packed, geo,
-                         fetch, flen)
-        return out[self.unsort, 0] * jnp.float32(self.field_scale), overflow
+        inert = jnp.asarray([[INERT_PX, INERT_PX, 0.0]], jnp.float32)
+        pk_r = jnp.concatenate([slim, inert], axis=0)[layout_src]
+        cand = jnp.concatenate([pk_r, inert], axis=0)[trip_src].T
+        return self._field(cand, T, self.cap)
 
     # ------------------------------------------------------------------
     def field_from_frame(self, sim, frame) -> tuple[jnp.ndarray, jnp.ndarray]:
         """(row-major pixel field, overflow) REUSING the engine's candidate
         frame (trip_src, T from make_multi_step(return_frame=True)) instead
-        of re-sorting the fluid — the per-frame sort + frame build was the
-        dominant render cost at 1M (VERDICT r2 weak #4).
+        of re-sorting the fluid.
 
         Exact when the frame is layout-fresh (resort_every=1); for sticky
         states the frame is <= resort_every-1 ticks stale, which can only
@@ -317,42 +221,11 @@ class WindowRenderer:
         pixel's support — the same bound the physics runs under.  Boundary
         candidate lanes are excluded by giving their source rows m = 0."""
         trip_src, T = frame
-        espec, spec = self.engine_spec, self.reuse_spec
-        cfg = self.cfg
         packed = sim.packed
-        zcol = jnp.zeros((packed.shape[0], 1), jnp.float32)
-        slim = jnp.concatenate([packed[:, 0:2], packed[:, 4:5], zcol], axis=1)
         src = jnp.concatenate(
-            [slim, jnp.zeros((self.n_boundary + 1, 4), jnp.float32)], axis=0)
-        if espec.band_h:
-            # the engine's source sits above XLA's large-source gather
-            # cliff whenever banding is on (same n_src, ROOFLINE 2f) —
-            # rebase per frame (one elementwise pass, noise next to the
-            # gather) and band-gather; a span overrun folds into the
-            # render overflow scream like the engine's does
-            b_start, b_local, bad = band_plan(espec, trip_src)
-            g4 = take_banded(espec, src, b_start, b_local).T
-            band_overflow = jnp.minimum(bad, 1000).astype(jnp.int32) \
-                * jnp.int32(1_000_000)
-        else:
-            g4 = src[trip_src].T                   # (4, L_engine)
-            band_overflow = jnp.int32(0)
-        # the pixel cap exceeds the engine's per-segment guard budget, so a
-        # window fetch may overrun the engine L — pad each plane by cap
-        # zeros and rebase the shifted plane at L + cap
-        pad = jnp.zeros((4, spec.cap), jnp.float32)
-        plane = jnp.concatenate([g4, pad], axis=1)  # (4, L + cap)
-        geo = jnp.concatenate(
-            [plane, jnp.pad(plane[:, 64:], ((0, 0), (0, 64)))], axis=1)
-        l_pad = espec.L + spec.cap
-
-        fetch, flen, overflow = pixel_windows(
-            T, self.blk_c_first, self.blk_c_last, self.blk_has_q,
-            spec.cap, l_pad, cfg.n_cells)
-        out = field_call(cfg, spec, self.interpret, self.q_packed, geo,
-                         fetch, flen)
-        return (out[self.unsort, 0] * jnp.float32(self.field_scale),
-                overflow + band_overflow)
+            [jnp.concatenate([packed[:, 0:2], packed[:, 4:5]], axis=1),
+             jnp.zeros((self.n_boundary + 1, 3), jnp.float32)], axis=0)
+        return self._field(src[trip_src].T, T, self.reuse_cap)
 
     def render(self, sim) -> tuple[jnp.ndarray, jnp.ndarray]:
         """(page-packed framebuffer, window overflow count).

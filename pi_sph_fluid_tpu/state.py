@@ -2,7 +2,7 @@
 
 The reference stores particles as an array-of-structs ``struct particle
 {x,y,u,v,m,rho,p}`` (`pi_sph_fluid.c:26-31`) and transposes neighbor copies to
-SoA for vectorisation (`pi_sph_fluid.c:155-163`).  On TPU the SoA layout is
+SoA for vectorisation (`pi_sph_fluid.c:155-163`).  On an accelerator the SoA layout is
 the native one, so state is SoA from the start: one flat float32 array per
 field.  NamedTuples register as pytrees automatically, flow through jit /
 scan / shard_map, and support donation.

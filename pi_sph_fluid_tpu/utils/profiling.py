@@ -1,5 +1,5 @@
-"""Profiling helpers (SURVEY.md §5: the TPU equivalent of the reference's
-ticks/s meter plus proper tracing).
+"""Profiling helpers (SURVEY.md §5: the accelerator equivalent of the
+reference's ticks/s meter plus proper tracing).
 
 The reference's only profiling is the printed ticks/s with REALTIME
 commented out (`pi_sph_fluid.c:10,680-687`).  Here:
@@ -9,17 +9,22 @@ commented out (`pi_sph_fluid.c:10,680-687`).  Here:
 * ``throughput(fn, state, *args)`` — wall-clock particle-steps/s of a
   compiled multi-step, warmed and block_until_ready'd correctly (the only
   honest way to time dispatches through the async runtime);
-* ``device_memory()`` — live/peak HBM usage where the backend reports it.
+* ``device_memory()`` — live/peak device memory where the backend reports
+  it;
+* ``device_summary()`` — the device as JAX reports it plus the card's name
+  and power limit from ``nvidia-smi`` (every timing is kept beside them).
 """
 
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
 
 import jax
 
-__all__ = ["trace", "throughput", "device_memory"]
+__all__ = ["trace", "throughput", "device_memory", "device_summary",
+           "gpu_name_and_power_limit", "require_gpu"]
 
 
 @contextlib.contextmanager
@@ -64,3 +69,31 @@ def device_memory() -> dict:
                 "bytes_limit": stats.get("bytes_limit"),
             }
     return out
+
+
+def gpu_name_and_power_limit() -> str:
+    """``name, power.limit`` of the first card as nvidia-smi prints it
+    ("not available" where there is no nvidia-smi)."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return "not available"
+    return out.strip().splitlines()[0] if out.strip() else "not available"
+
+
+def device_summary() -> dict:
+    """platform / device_kind / count as JAX reports them, and the card."""
+    devs = jax.devices()
+    return {"platform": devs[0].platform, "kind": devs[0].device_kind,
+            "count": len(devs), "nvidia_smi": gpu_name_and_power_limit()}
+
+
+def require_gpu() -> None:
+    """Exit nonzero unless JAX's default device is a GPU: a measurement
+    never falls back to the CPU."""
+    platform = jax.devices()[0].platform
+    if platform != "gpu":
+        raise SystemExit(f"no GPU: JAX's default device is {platform!r}")

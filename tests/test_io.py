@@ -458,7 +458,7 @@ def test_cli_checkpoint_roundtrip(tmp_path):
 
 
 def test_cli_pallas_resume_is_bitwise(tmp_path):
-    """VERDICT r3 weak #4: the pallas --save-state npz must carry the raw
+    """The pallas --save-state npz must carry the raw
     layout arrays (packed, au, av — the leapfrog carry), and --load-state
     must resume from them VERBATIM: an 8-step run saved + resumed for 8
     more steps is bitwise identical to one continuous 16-step run.  A
@@ -472,7 +472,7 @@ def test_cli_pallas_resume_is_bitwise(tmp_path):
     dt = CFG.dt
     half, cont, res = (str(tmp_path / f) for f in
                        ("half.npz", "cont.npz", "res.npz"))
-    base = ["run", "--scene", "drop", "--backend", "pallas",
+    base = ["run", "--scene", "drop", "--backend", "pallas", "--interpret",
             "--display", "none", "--steps-per-dispatch", "4"]
     main(base + ["--seconds", repr(8 * dt), "--save-state", half])
     main(base + ["--seconds", repr(16 * dt), "--save-state", cont])
@@ -497,7 +497,7 @@ def test_simrunner_pallas_render_dispatch(tmp_path):
 
     fluid, braw = build_drop_scene(CFG)
     runner = SimRunner(CFG, fluid, braw, backend="pallas",
-                       engine_opts=dict(tq=32, qb=8, cap=256, seg_q=2,
+                       engine_opts=dict(qb=8, cap=256, seg_q=2,
                                         interpret=True),
                        render=True, resort_every=2)
     path = tmp_path / "frames.bin"
@@ -528,7 +528,7 @@ def test_autocap_recovery_replays_clean():
     fluid, braw = build_dam_break_scene(cfg)
     log = io.StringIO()
     runner = SimRunner(cfg, fluid, braw, backend="pallas",
-                       engine_opts=dict(tq=32, qb=8, cap=128, seg_q=2,
+                       engine_opts=dict(qb=16, cap=128, seg_q=2,
                                         interpret=True),
                        render=False, max_cap=512)
     res = runner.run(RotatingGravity(cfg, period_s=0.05),
@@ -542,7 +542,7 @@ def test_autocap_recovery_replays_clean():
     # a fresh run that starts at the recovered cap, driven by an identical
     # fresh gravity source, must agree exactly
     clean = SimRunner(cfg, fluid, braw, backend="pallas",
-                      engine_opts=dict(tq=32, qb=8, seg_q=2, interpret=True,
+                      engine_opts=dict(qb=16, seg_q=2, interpret=True,
                                        cap=runner.engine.spec.cap),
                       render=False, auto_cap=False)
     res2 = clean.run(RotatingGravity(cfg, period_s=0.05),
@@ -563,7 +563,7 @@ def test_autocap_ceiling_keeps_counting():
     fluid, braw = build_dam_break_scene(cfg)
     log = io.StringIO()
     runner = SimRunner(cfg, fluid, braw, backend="pallas",
-                       engine_opts=dict(tq=32, qb=8, cap=128, seg_q=2,
+                       engine_opts=dict(qb=16, cap=128, seg_q=2,
                                         interpret=True),
                        render=False, max_cap=128)
     res = runner.run(ConstantGravity(cfg), sim_seconds=8 * cfg.dt,
@@ -584,7 +584,7 @@ def test_autocap_settle_recovery():
     fluid, braw = build_dam_break_scene(cfg)
     log = io.StringIO()
     runner = SimRunner(cfg, fluid, braw, backend="pallas",
-                       engine_opts=dict(tq=32, qb=8, cap=128, seg_q=2,
+                       engine_opts=dict(qb=16, cap=128, seg_q=2,
                                         interpret=True),
                        render=False, max_cap=512)
     res = runner.run(ConstantGravity(cfg), sim_seconds=4 * cfg.dt,
@@ -607,7 +607,7 @@ def test_autocap_recovery_with_renderer(tmp_path):
     cfg = SPHConfig()
     fluid, braw = build_drop_scene(cfg)
     runner = SimRunner(cfg, fluid, braw, backend="pallas",
-                       engine_opts=dict(tq=32, qb=8, cap=128, seg_q=2,
+                       engine_opts=dict(qb=16, cap=128, seg_q=2,
                                         interpret=True),
                        render=True, max_cap=512)
     p1 = tmp_path / "recovered.bin"
@@ -619,7 +619,7 @@ def test_autocap_recovery_with_renderer(tmp_path):
     assert res.reporter.total_overflow == 0
 
     clean = SimRunner(cfg, fluid, braw, backend="pallas",
-                      engine_opts=dict(tq=32, qb=8, seg_q=2, interpret=True,
+                      engine_opts=dict(qb=16, seg_q=2, interpret=True,
                                        cap=runner.engine.spec.cap),
                       render=True, auto_cap=False)
     p2 = tmp_path / "clean.bin"
@@ -644,7 +644,7 @@ def test_autocap_recovery_with_resume():
     cfg = SPHConfig()
     fluid, braw = build_dam_break_scene(cfg)
     warm = SimRunner(cfg, fluid, braw, backend="pallas",
-                     engine_opts=dict(tq=32, qb=8, cap=256, seg_q=2,
+                     engine_opts=dict(qb=16, cap=256, seg_q=2,
                                       interpret=True),
                      render=False, auto_cap=False)
     res0 = warm.run(ConstantGravity(cfg), sim_seconds=4 * cfg.dt,
@@ -652,7 +652,7 @@ def test_autocap_recovery_with_resume():
 
     log = io.StringIO()
     runner = SimRunner(cfg, fluid, braw, backend="pallas",
-                       engine_opts=dict(tq=32, qb=8, cap=128, seg_q=2,
+                       engine_opts=dict(qb=16, cap=128, seg_q=2,
                                         interpret=True),
                        render=False, max_cap=512)
     res = runner.run(ConstantGravity(cfg), sim_seconds=8 * cfg.dt,
@@ -662,7 +662,7 @@ def test_autocap_recovery_with_resume():
     assert res.reporter.total_overflow == 0
 
     clean = SimRunner(cfg, fluid, braw, backend="pallas",
-                      engine_opts=dict(tq=32, qb=8, seg_q=2, interpret=True,
+                      engine_opts=dict(qb=16, seg_q=2, interpret=True,
                                        cap=runner.engine.spec.cap),
                       render=False, auto_cap=False)
     res2 = clean.run(ConstantGravity(cfg), sim_seconds=8 * cfg.dt,
@@ -680,7 +680,7 @@ def test_next_cap_ladder():
 
     fluid, braw = build_drop_scene(CFG)
     r = SimRunner(CFG, fluid, braw, backend="pallas", render=False,
-                  engine_opts=dict(tq=32, qb=8, cap=128, seg_q=2,
+                  engine_opts=dict(qb=16, cap=128, seg_q=2,
                                    interpret=True),
                   max_cap=1024)
     assert [r._next_cap(c) for c in (128, 256, 384, 512, 896)] == \
@@ -691,7 +691,7 @@ def test_render_shape_plumbs_to_renderer_and_sinks(tmp_path):
     """--render-shape end-to-end at a non-default 32x64: the runner's
     framebuffer is 32*64/8 = 256 bytes, the PNG sink emits 32s x 64s
     images, and the terminal/file sinks unpack with the same geometry
-    (ADVICE r2: PngSink used to hardcode 64x128)."""
+    (PngSink once hardcoded 64x128)."""
     import struct
     import zlib
 
@@ -703,7 +703,7 @@ def test_render_shape_plumbs_to_renderer_and_sinks(tmp_path):
     cfg = SPHConfig()
     fluid, braw = build_drop_scene(cfg)
     runner = SimRunner(cfg, fluid, braw, backend="pallas",
-                       engine_opts=dict(tq=32, qb=8, cap=256, seg_q=2,
+                       engine_opts=dict(qb=8, cap=256, seg_q=2,
                                         interpret=True),
                        render=True, render_shape=(32, 64))
     p = tmp_path / "frames.bin"

@@ -111,7 +111,7 @@ def test_init_distributes_by_slab(setup):
 def test_500_step_collapse_8_slabs():
     """A full dam-break collapse (500 steps, speeds > 2 m/s) across 8 slabs:
     sustained migration + halo traffic with zero overflow and exact particle
-    conservation (VERDICT round-1 weak spot: DD was only exercised for tens
+    conservation (DD was once only exercised for tens
     of steps far from capacity)."""
     import jax.numpy as jnp
     from jax.sharding import Mesh

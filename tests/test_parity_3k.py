@@ -109,7 +109,7 @@ def test_window_engine_trajectory_parity_at_3k(golden):
     golden at 3k — the FULL 2000-step fixture with the same per-step
     gates as the oracle's test_trajectory_parity_at_3k (round 5 extended
     this from step 500: warm interpret steps cost ~10 ms each, so the
-    whole fixture is ~20 s of stepping — VERDICT r4 #7a).  Round 3's
+    whole fixture is ~20 s of stepping).  Round 3's
     parity chain went engine~=oracle and oracle~=C; this gates the
     shipping engine against the C trajectory end-to-end.  Reference: the
     drop loop `pi_sph_fluid.c:604-644`."""
@@ -151,8 +151,8 @@ def test_dd_trajectory_parity_at_3k(golden):
     directly vs the C golden — 200 steps.  Before round 5, dd parity was
     transitive (dd == single-engine at small scenes, engine == C here);
     this gates the dd pipeline — migration, halo exchange, per-slab
-    relayout, ghost densities — against the C trajectory itself (VERDICT
-    r4 #7b).  Reference: the drop loop `pi_sph_fluid.c:604-644` + the
+    relayout, ghost densities — against the C trajectory itself.
+    Reference: the drop loop `pi_sph_fluid.c:604-644` + the
     parallelism row `pi_sph_fluid.c:610`.
 
     Measured divergence (2026-08-19, this exact configuration): step 100

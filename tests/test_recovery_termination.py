@@ -31,7 +31,7 @@ def runner(scene):
 
     cfg, fluid, braw = scene
     return SimRunner(cfg, fluid, braw, backend="pallas-dd",
-                     engine_opts=dict(slabs=4, interpret=True, tq=32,
+                     engine_opts=dict(slabs=4, interpret=True,
                                       qb=8, cap=128, seg_q=2),
                      render=False, resort_every=2, max_cap=256)
 
@@ -109,7 +109,7 @@ def test_scream_only_overflow_stops_recovering_at_the_ceilings(scene):
     fluid = fluid._replace(u=fluid.u.at[0].set(jnp.float32("nan")))
     log = _io.StringIO()
     runner = SimRunner(cfg, fluid, braw, backend="pallas-dd",
-                       engine_opts=dict(slabs=4, interpret=True, tq=32,
+                       engine_opts=dict(slabs=4, interpret=True,
                                         qb=8, cap=128, seg_q=2),
                        render=False, resort_every=2, max_cap=256)
     res = runner.run(ConstantGravity(cfg), None, sim_seconds=8 * cfg.dt,

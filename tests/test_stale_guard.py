@@ -30,7 +30,7 @@ from pi_sph_fluid_tpu.models.scene import build_drop_scene
 from pi_sph_fluid_tpu.parallel.domain_window import WindowDomain
 
 G = (0.0, -9.81)
-KW = dict(tq=32, qb=8, cap=256, seg_q=2, interpret=True)
+KW = dict(qb=8, cap=256, seg_q=2, interpret=True)
 
 
 @pytest.fixture(scope="module")

@@ -87,8 +87,8 @@ def test_ids_track_identity(sim_setup):
 
 
 def test_nonfinite_state_screams_in_stats(sim_setup):
-    """TPU max-reductions silently drop NaN operands, so a NaN'd state can
-    print healthy max stats; the overflow counter must scream instead
+    """A max reduction need not propagate NaN operands, so a NaN'd state
+    could print healthy max stats; the overflow counter must scream instead
     (x1e6 per non-finite row, like capacity-lost rows)."""
     from pi_sph_fluid_tpu.models.simulation import stats
 

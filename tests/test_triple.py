@@ -37,7 +37,7 @@ def _random_engine_state(seed, n=300, clustered=False):
     pos[:, 1] = np.clip(pos[:, 1], 0.01, 1.99)
     _, braw = build_drop_scene(CFG)
     boundary, bgrid = prepare_boundary(braw, CFG)
-    eng = WindowEngine(CFG, boundary, bgrid, n, tq=32, qb=8, cap=256,
+    eng = WindowEngine(CFG, boundary, bgrid, n, qb=8, cap=256,
                       seg_q=2, interpret=True)
     z = jnp.zeros(n, jnp.float32)
     fl = FluidState(x=jnp.asarray(pos[:, 0]), y=jnp.asarray(pos[:, 1]),
@@ -47,14 +47,9 @@ def _random_engine_state(seed, n=300, clustered=False):
     return eng, boundary, pk, ctx, int(overflow)
 
 
-def _fetched_plain_range(spec, fetch):
-    """Dual-plane fetch offset -> plain trip-slot indices of the fetched
-    lanes (dual[t] = trip[t] for t < L; dual[L+t] = trip[t+64])."""
-    if fetch >= spec.L:
-        lo = fetch - spec.L + 64
-    else:
-        lo = fetch
-    return np.arange(lo, min(lo + spec.cap, spec.L))
+def _fetched_plain_range(spec, start):
+    """Trip-slot indices of the ``cap`` lanes read from a window start."""
+    return np.arange(start, min(start + spec.cap, spec.L))
 
 
 @pytest.mark.parametrize("seed,clustered", [(0, False), (1, True), (2, True)])
@@ -96,7 +91,7 @@ def test_every_true_pair_in_exactly_one_window(seed, clustered):
 
 
 def test_l_budget_overrun_is_counted_never_silent():
-    """If the static candidate budget L were ever overrun (ADVICE r2: the
+    """If the static candidate budget L were ever overrun (the
     per-segment LANE rounding case), the excess must fire the overflow
     counter (weighted x1e6) instead of letting windows index garbage."""
     eng, _, _, ctx, overflow = _random_engine_state(3, clustered=True)

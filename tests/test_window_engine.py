@@ -1,9 +1,8 @@
 """Window engine (round-2 production path) vs the jnp oracle.
 
-Mirrors test_pallas.py for models/engine_v3.WindowEngine: interpreter-mode
-kernels on CPU, whole pipeline checked against models/simulation.py.
-Hardware-only behavior (real DMA semaphores, denormal flushing) is covered
-by tools/tpu_parity.py on the attached chip.
+Interpreter-mode kernels on CPU, whole pipeline checked against
+models/simulation.py.  The compiled kernels are checked on the GPU by
+chip_smoke.py.
 """
 
 import jax
@@ -18,7 +17,7 @@ from pi_sph_fluid_tpu.models.scene import build_dam_break_scene, build_drop_scen
 from pi_sph_fluid_tpu.models.simulation import make_step, prime
 
 G = (0.0, -9.81)
-ENGINE_KW = dict(tq=32, qb=8, cap=256, seg_q=2, interpret=True)
+ENGINE_KW = dict(qb=8, cap=256, seg_q=2, interpret=True)
 
 
 def _by_id_oracle(sim):
@@ -125,7 +124,7 @@ def test_ids_preserved_and_pads_inert(scene, engine, primed):
 def test_window_overflow_reported_not_silent(scene):
     """Tiny cap must report window truncation through the stats channel."""
     cfg, fluid, boundary, bgrid = scene
-    eng = WindowEngine(cfg, boundary, bgrid, fluid.n, tq=32, qb=8, cap=128,
+    eng = WindowEngine(cfg, boundary, bgrid, fluid.n, qb=16, cap=128,
                        seg_q=2, interpret=True)
     packed = eng._initial_packed(fluid)
     _, _, overflow = jax.jit(eng._relayout)(packed)
@@ -193,8 +192,8 @@ def test_single_particle_at_corner(scene):
 
 def test_nonfinite_state_screams_in_stats(scene):
     """Engine-path twin of test_step.test_nonfinite_state_screams_in_stats:
-    a NaN row in the packed state must fire the x1e6 overflow scream (TPU
-    max-reductions drop NaN, hiding it from the max stats)."""
+    a NaN row in the packed state must fire the x1e6 overflow scream (a
+    max reduction need not propagate NaN, which would hide it)."""
     cfg, fluid, boundary, bgrid = scene
     eng = WindowEngine(cfg, boundary, bgrid, fluid.n, **ENGINE_KW)
     sim = eng.prime(fluid, G)
@@ -204,16 +203,16 @@ def test_nonfinite_state_screams_in_stats(scene):
 
 
 def test_kernel_epilogue_contract(scene, engine, primed):
-    """The round-4 fused epilogues, pinned against the jnp reference forms.
+    """The fused epilogues of the pair passes.
 
     density_window_call returns (geo8, rp): geo8 must be the fluid
     force-candidate rows [x, y, u, v, m, cp, re, a=0.5] — cols 0:5 the
-    query state verbatim, cp/re/a matching engine._eos — and rp the
-    [rho, p] pair.  forces_window_call(half_dt, damp) must return pk_next
-    equal to the old XLA finish: u2 = (u + half_dt*au)*damp with rho/p in
-    cols 5:7 and the id column preserved."""
+    query state verbatim, cp/re/a matching the EOS on the returned rho —
+    and rp the [rho, p] pair.  forces_window_call(half_dt, damp) must
+    return pk_next with u2 = (u + half_dt*au)*damp, rho/p in cols 5:7 and
+    the id column preserved."""
     from pi_sph_fluid_tpu.ops.pallas.window_kernels import (
-        density_window_call, forces_window_call)
+        _Consts, _eos, density_window_call, forces_window_call)
 
     cfg = engine.cfg
     psim, _ = primed
@@ -222,27 +221,27 @@ def test_kernel_epilogue_contract(scene, engine, primed):
     geo_d_src = jnp.concatenate([
         jnp.concatenate([pk[:, 0:2], pk[:, 4:5], zcol], axis=1),
         engine.b_geo_d, engine.inert_row_d], axis=0)
-    geo_d = engine._expand(geo_d_src[ctx.trip_src].T)
-    geo8, rp = density_window_call(pk, geo_d, ctx.w_start, ctx.flen,
+    geo_d = geo_d_src[ctx.trip_src].T
+    geo8, rp = density_window_call(pk, geo_d, ctx.w_start, ctx.w_len,
                                    cfg, engine.spec, interpret=True)
     geo8, rp = np.asarray(geo8), np.asarray(rp)
     # cols 0:5 and 7 (id col replaced by the constant a-weight)
     np.testing.assert_array_equal(geo8[:, 0:5], np.asarray(pk[:, 0:5]))
     np.testing.assert_array_equal(geo8[:, 7], np.full(pk.shape[0], 0.5))
-    # EOS columns vs the jnp reference (bitwise: same f32 op order)
-    e = np.asarray(engine._eos(jnp.asarray(rp[:, 0:1])))
-    np.testing.assert_array_equal(rp[:, 1], e[:, 1])       # p
-    np.testing.assert_array_equal(geo8[:, 5], e[:, 2])     # cp
-    np.testing.assert_array_equal(geo8[:, 6], e[:, 3])     # re
+    # EOS columns vs the jnp form (bitwise: same f32 op order)
+    p, cp = (np.asarray(a) for a in _eos(_Consts(cfg), jnp.asarray(rp[:, 0])))
+    np.testing.assert_array_equal(rp[:, 1], p)
+    np.testing.assert_array_equal(geo8[:, 5], cp)
+    np.testing.assert_array_equal(geo8[:, 6], np.float32(0.5) * rp[:, 0])
 
-    # forces: fused trailing half-kick vs the explicit XLA form
+    # forces: fused trailing half-kick vs the explicit form
     geo_f_src = jnp.concatenate(
         [jnp.asarray(geo8), engine.b_geo, engine.inert_row], axis=0)
-    geo_f = engine._expand(geo_f_src[ctx.trip_src].T)
+    geo_f = geo_f_src[ctx.trip_src].T
     half_dt, damp = 0.5 * float(cfg.dt), 0.97
     pk_next, acc = forces_window_call(
         pk, jnp.asarray(geo8), jnp.asarray(rp), geo_f, ctx.w_start,
-        ctx.flen, jnp.asarray(G, jnp.float32), cfg, engine.spec,
+        ctx.w_len, jnp.asarray(G, jnp.float32), cfg, engine.spec,
         half_dt=half_dt, damp=damp, interpret=True)
     pk_next, acc = np.asarray(pk_next), np.asarray(acc)
     pk_np = np.asarray(pk, np.float32)
@@ -259,7 +258,7 @@ def test_kernel_epilogue_contract(scene, engine, primed):
 
 def test_sampled_stats_report_group_max(scene, engine, primed):
     """Sticky-group SAMPLED stats must report the GROUP max, not the final
-    tick's value (ADVICE r4): carried ticks fold rho/speed into per-particle
+    tick's value: carried ticks fold rho/speed into per-particle
     running maxima, so the sampled final tick equals the max over the
     group's per-tick exact stats."""
     psim, _ = primed
@@ -285,7 +284,7 @@ def test_sampled_stats_see_interior_transient(scene):
     """An interior-tick speed spike must reach the reporter.  Ballistic
     particles thrown upward decelerate under gravity, so within a sticky
     group the max speed is at the FIRST carried tick — a final-tick-only
-    sample would under-report it (the exact regression ADVICE r4 flagged)."""
+    sample would under-report it."""
     cfg, _, boundary, bgrid = scene
     from pi_sph_fluid_tpu.state import FluidState
 
@@ -308,32 +307,3 @@ def test_sampled_stats_see_interior_transient(scene):
     # decayed final-tick speed
     np.testing.assert_allclose(np.asarray(stk.max_speed)[k - 1], sp1.max(),
                                rtol=1e-5)
-
-
-def test_banded_gather_bitwise(scene, engine, primed):
-    """The banded candidate gather (TripleSpec.band_h — keeps XLA's row
-    gather in its fast small-source mode at large N) must select exactly
-    the same rows as the plain gather: trajectories are BITWISE identical
-    whenever the band-overflow scream reads 0."""
-    cfg, fluid, boundary, bgrid = scene
-    psim, _ = primed
-    eb = WindowEngine(cfg, boundary, bgrid, fluid.n, band=448, **ENGINE_KW)
-    assert eb.spec.band_h == 448 and eb.spec.band_p > 1
-    sb = eb.prime(fluid, G)
-    np.testing.assert_array_equal(np.asarray(psim.packed), np.asarray(sb.packed))
-    g = jnp.broadcast_to(jnp.asarray(G, jnp.float32), (8, 2))
-    r0, st0 = jax.jit(engine.make_multi_step(resort_every=4))(psim, g)
-    r1, st1 = jax.jit(eb.make_multi_step(resort_every=4))(sb, g)
-    np.testing.assert_array_equal(np.asarray(r0.packed), np.asarray(r1.packed))
-    assert int(jnp.max(st1.neighbor_overflow)) == 0
-
-
-def test_band_overflow_screams(scene):
-    """A band too small for the chunk spans must scream x1e6 through the
-    overflow channel (counted, never silent) instead of silently gathering
-    boundary-tail rows."""
-    cfg, fluid, boundary, bgrid = scene
-    eb = WindowEngine(cfg, boundary, bgrid, fluid.n, band=96, **ENGINE_KW)
-    pk = eb._initial_packed(fluid)
-    _, _, ovf = jax.jit(eb._relayout)(pk)
-    assert int(ovf) >= 1_000_000

@@ -2,7 +2,7 @@
 """Convert a FileSink capture (raw concatenated page-packed framebuffers,
 ``--display file:frames.bin``) into one looping animated GIF offline.
 
-Record on the TPU headless — the file sink costs ~1 KB/frame and never
+Record on the accelerator headless — the file sink costs ~1 KB/frame and never
 blocks the dispatch loop — then build the shareable artifact later:
 
     python tools/frames_to_gif.py /tmp/frames.bin demo.gif --rows 64 --cols 128
